@@ -1,0 +1,150 @@
+"""Build the port's CUDA sources with ``nvcc`` and load them with ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface (``extern "C"``
+functions taking device pointers, sizes, scalars and a CUDA stream, and
+returning the launch's ``cudaError_t``).  On first use it is compiled for
+Hopper (``sm_90a``) into ``build/kernels/`` at the repository root, under
+a file name that carries a hash of the source and the flags, so an edited
+source is rebuilt and an unchanged one is reused.  Nothing here runs at
+import time: the CPU tests import every module and have no ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable, List, Sequence, Tuple
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+# Flags of one source only.  The SWE step must not contract a*b+c into FMAs:
+# at 7 km depth one ulp of h is 0.5 mm of sea surface, whose pressure
+# gradient moves the momentum by ~1e-4 of its size in a step, so the kernel
+# keeps the plain version's IEEE rounding of every operation instead.
+EXTRA_FLAGS = {"swe_flux": ("--fmad=false",)}
+
+# A C signature: (restype, [argtypes]).
+Signature = Tuple[object, Sequence[object]]
+
+
+class LaunchCounter:
+    """Thread-safe count of one kernel's launches (balancer workers launch
+    concurrently)."""
+
+    def __init__(self, name: str) -> None:
+        self.name = name
+        self._n = 0
+        self._lock = threading.Lock()
+
+    def add(self) -> None:
+        with self._lock:
+            self._n += 1
+
+    def reset(self) -> None:
+        with self._lock:
+            self._n = 0
+
+    @property
+    def value(self) -> int:
+        return self._n
+
+
+class KernelLibrary:
+    """Builds (once) and loads (once) the shared libraries of ``csrc/``."""
+
+    def __init__(self, build_dir: Path = BUILD_DIR) -> None:
+        self.build_dir = build_dir
+        self.ptxas_log: Dict[str, str] = {}
+        self._libs: Dict[str, ctypes.CDLL] = {}
+        self._lock = threading.Lock()
+
+    @staticmethod
+    def nvcc() -> str:
+        cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+        if cand.exists():
+            return str(cand)
+        found = shutil.which("nvcc")
+        if found is None:
+            raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+        return found
+
+    @staticmethod
+    def flags(name: str) -> Tuple[str, ...]:
+        return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+    def target(self, name: str) -> Path:
+        src = CSRC / f"{name}.cu"
+        digest = hashlib.sha256(
+            src.read_bytes() + " ".join(self.flags(name)).encode()
+        ).hexdigest()[:16]
+        return self.build_dir / f"{name}-{digest}.so"
+
+    def build(self, names: Iterable[str]) -> None:
+        """Compile every missing library, one ``nvcc`` per source, all
+        started together; raise with the compiler's output on failure."""
+        jobs: List[Tuple[str, Path, Path, subprocess.Popen]] = []
+        for name in names:
+            so = self.target(name)
+            if so.exists():
+                continue
+            self.build_dir.mkdir(parents=True, exist_ok=True)
+            tmp = so.with_name(f"{so.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+            cmd = [self.nvcc(), *self.flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            proc = subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            )
+            jobs.append((name, so, tmp, proc))
+        errors = []
+        for name, so, tmp, proc in jobs:
+            out, _ = proc.communicate()
+            self.ptxas_log[name] = out
+            if proc.returncode != 0:
+                errors.append(f"nvcc failed for {name}.cu:\n{out}")
+                continue
+            os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
+        if errors:
+            raise RuntimeError("\n".join(errors))
+
+    def load(self, name: str, signatures: Dict[str, Signature]) -> ctypes.CDLL:
+        """The loaded library ``name``, built first if needed, with the C
+        signatures of its functions declared."""
+        with self._lock:
+            lib = self._libs.get(name)
+            if lib is None:
+                self.build([name])
+                lib = ctypes.CDLL(str(self.target(name)))
+                for fn, (restype, argtypes) in signatures.items():
+                    f = getattr(lib, fn)
+                    f.restype = restype
+                    f.argtypes = list(argtypes)
+                self._libs[name] = lib
+            return lib
+
+
+LIBRARY = KernelLibrary()
+COUNTERS: Dict[str, LaunchCounter] = {}
+
+
+def counter(name: str) -> LaunchCounter:
+    """The launch counter of kernel ``name`` (created on first request)."""
+    return COUNTERS.setdefault(name, LaunchCounter(name))
+
+
+def check_launch(err: int, kernel: str) -> None:
+    """Raise if a kernel's C entry point reported a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel '{kernel}' failed to launch (cudaError {err})")
+
+
+def reset_counters() -> None:
+    for c in COUNTERS.values():
+        c.reset()

@@ -1,0 +1,78 @@
+"""Server-pool wiring for the Tōhoku MLDA workload (DESIGN.md §8).
+
+With ``MLDAWorkloadConfig.batch_solves`` (the default) every server is a
+:class:`repro_torch.balancer.types.BatchServer`: its handler takes a stacked
+``(B, ...)`` parameter array, so the dispatcher's coalescing path runs a
+whole same-level batch as ONE batched solve (on the card, one fused-kernel
+launch per time step) instead of B back-to-back solves.
+
+Handlers take numpy in and give numpy out, as the balancer's servers do in
+the reference: the thetas go to the forward's device as float32, and the
+result comes back to the host on the worker thread, so a server's busy
+interval covers the real device work.  On the card each server issues its
+work on a CUDA stream of its own: on one shared stream a GP evaluation's
+copy to the host would wait behind every fine-level step queued before it.
+"""
+from __future__ import annotations
+
+from typing import Callable, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.balancer import BatchServer, Server
+
+
+def _on_host(fn: Callable, device: torch.device) -> Callable:
+    stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+
+    def call(thetas) -> np.ndarray:
+        x = np.asarray(thetas, dtype=np.float32)
+        if stream is None:
+            return fn(torch.as_tensor(x)).numpy()
+        with torch.cuda.stream(stream):
+            return fn(torch.as_tensor(x, device=device)).cpu().numpy()
+
+    return call
+
+
+def make_level_servers(
+    w,
+    gp,
+    f_coarse: Callable,
+    f_fine: Callable,
+    *,
+    batch_forwards: Optional[Sequence[Optional[Callable]]] = None,
+) -> List[Server]:
+    """One GP server + the config's per-level coarse/fine SWE servers.
+
+    When ``w.batch_solves`` is set, a level whose batched forward is
+    available becomes a :class:`BatchServer` capped at ``w.max_batch``;
+    levels without one get per-request servers.  ``batch_forwards`` is
+    ``(level0, level1, level2)`` stacked handlers (``None`` entries fall
+    back); the GP's own ``batch_call`` fills level 0 when none is given.
+    Every forward carries its ``device`` (the scenario's, or the GP's).
+    """
+    batching = bool(getattr(w, "batch_solves", False))
+    max_batch = int(getattr(w, "max_batch", 8)) or None
+    bf = list(batch_forwards or (None, None, None))
+    while len(bf) < 3:
+        bf.append(None)
+    if batching and bf[0] is None:
+        bf[0] = gp.batch_call
+    devices = (gp.device, f_coarse.device, f_fine.device)
+
+    def server(level: int, single: Callable, name: str, tag: str) -> Server:
+        if batching and bf[level] is not None:
+            return BatchServer(
+                _on_host(bf[level], devices[level]), name=name,
+                capacity_tags=(tag,), max_batch=max_batch,
+            )
+        return Server(_on_host(single, devices[level]), name=name, capacity_tags=(tag,))
+
+    servers = [server(0, gp, "gp-0", "level0")]
+    for i in range(max(w.servers_per_level.get(1, 1), 1)):
+        servers.append(server(1, f_coarse, f"coarse-{i}", "level1"))
+    for i in range(max(w.servers_per_level.get(2, 1), 1)):
+        servers.append(server(2, f_fine, f"fine-{i}", "level2"))
+    return servers
