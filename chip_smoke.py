@@ -9,18 +9,37 @@ Phases (any failure exits non-zero; there is no CPU path):
    ``src/repro_torch/csrc`` with nvcc (one process per source, in parallel)
    and print each build's ``-Xptxas -v`` report;
 2. hold each kernel against its plain PyTorch version on the card at the
-   main path's shapes (fused SWE step at 288x288 and 96x96 with B = 8, the
+   main paths' shapes (fused SWE step at 288x288 and 96x96 with B = 8, the
    directional sweep at 288x288 in x and y, Matérn at (8, 2) x (512, 2) and
-   (130, 2+3) x (70, 5)), check lake-at-rest through the kernels, and time
-   kernel and plain version with CUDA events;
+   (130, 2+3) x (70, 5); flash attention over the reference's six test
+   cases in fp32, its bf16 case, and qwen2-0.5b's heads at 4096 tokens
+   against the materialising plain version and the plain blocked loop, and
+   at 32768 tokens in bf16 and fp32 against the blocked loop, the qwen2
+   shapes also per row relative to the row's size), check lake-at-rest
+   through the kernels, and time kernel and plain version with CUDA events;
+   then build the flash kernel with each of ``PLANTED_FAULTS`` written into
+   a copy of its source, and fail unless the flash checks reject every one;
 3. check batch invariance: B = 1 rows against B = 8 rows, bit for bit, for
    the coarse and fine batched forwards and for ``GaussianProcess.batch_call``;
-4. drive the main path, ``repro_torch.launch.tsunami.run``, at the ``paper``
-   preset's widths (96x96 and 288x288 grids, 512 LHS points, 200 Adam steps,
-   5 chains through the balancer) with fewer fine samples per chain, with
-   the launch counters set to 0 just before; every kernel must launch;
-   check the outputs against the plain path;
-5. print the ``kernels`` JSON line, then the result line.
+4. drive the MLDA main path, ``repro_torch.launch.tsunami.run``, at the
+   ``paper`` preset's widths (96x96 and 288x288 grids, 512 LHS points, 200
+   Adam steps, 5 chains through the balancer), with the launch counters set
+   to 0 just before; every kernel of the path must launch; check the outputs
+   against the plain path;
+5. the LM slice's prefill: qwen2-0.5b at full width in bf16 (seeded random
+   weights) on one 32768-token prompt, counters at 0 just before; the flash
+   kernel must launch once per layer; the last position's logits must be
+   finite, and may differ from the same prefill through the plain blocked
+   attention by at most twice the difference between two sound plain
+   prefills (64- and 512-key blocks);
+6. the LM slice's serving: ``ServingEngine`` in continuous (8 slots) and
+   generation mode on 16 requests (32-token prompts, 1 to 64 new tokens);
+   the two modes' tokens, and each first token against the kernel path's
+   prefill, must agree wherever the reference's top-2 logit gap is at least
+   twice a control difference measured without the kernel (the chunked
+   prefill against the serving prefill), which also bounds the kernel
+   prefill's own difference and the difference between the modes;
+7. print the ``kernels`` JSON line, then the result line.
 """
 from __future__ import annotations
 
@@ -30,6 +49,7 @@ import subprocess
 import sys
 import time
 from dataclasses import replace
+from functools import partial
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
@@ -42,6 +62,7 @@ N_FINE_SAMPLES = 150
 # Card peaks for the bound: H100 SXM, NVIDIA data sheet.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12  # dense, tensor cores
 # Tolerances of each kernel against its plain version on the same inputs.
 # The SWE kernels are compared one step at a time from the same input: over
 # several steps a 1-ulp difference in h at 7 km depth (0.5 mm of sea
@@ -63,6 +84,61 @@ OBS_ATOL = 5e-3
 SWE_FACE_FLOPS = 74
 FUSED_FLOPS_PER_CELL = 2 * SWE_FACE_FLOPS + 28 + 12
 SWEEP_FLOPS_PER_CELL = SWE_FACE_FLOPS + 14
+# Flash attention against its plain versions: the reference's own bounds
+# (tests/test_kernels.py, fp32 and bf16), and its six fp32 test cases
+# (B, H, Hkv, S, D, causal, window).
+FLASH_FP32_ATOL = 3e-5
+FLASH_BF16_ATOL = 3e-2
+# The absolute bounds do not scale with the output: a causal row averages
+# the values of all keys it sees, so at 32k tokens its outputs are ~0.01,
+# below the bf16 bound.  The qwen2-shaped comparisons are therefore also
+# held per row: the row's largest difference over the row's largest plain
+# value.  Two sound blocked computations (64- and 512-key blocks) differ by
+# one bf16 step of the row's largest value (2^-7) and by ~1e-6 in fp32; the
+# limits are two bf16 steps and 1e-4.
+FLASH_BF16_ROW_RTOL = 2.0**-6
+FLASH_FP32_ROW_RTOL = 1e-4
+# Planted faults: each is one textual edit of csrc/flash_attention.cu, built
+# into its own library under build/planted/; the flash checks must reject
+# every one.  A rewrite of the kernel rewrites these edits with it.
+PLANTED_FAULTS = {
+    # The diagonal kv tile left out of every query tile past row 8192: a
+    # fault of the long rows only.
+    "long_rows_diagonal_dropped": (
+        "if (causal) kt_hi = min(kt_hi, (q0 + q_rows - 1) / kBlockK);",
+        "if (causal) kt_hi = min(kt_hi, (q0 + q_rows - 1) / kBlockK);\n"
+        "  if (causal && q0 >= 8192) --kt_hi;",
+    ),
+    # The accumulator not rescaled when the second kv tile raises the max.
+    "second_tile_rescale_skipped": (
+        "for (int c = 0; c < 4 * kCols; ++c) acc[i][c] *= alpha;",
+        "for (int c = 0; c < 4 * kCols; ++c) acc[i][c] *= (kt == kt_lo + 1 ? 1.f : alpha);",
+    ),
+}
+FLASH_CASES = [
+    (2, 4, 2, 128, 64, True, None),
+    (1, 8, 8, 256, 32, True, None),
+    (2, 4, 1, 200, 64, True, None),
+    (1, 4, 2, 256, 64, False, None),
+    (1, 4, 2, 384, 64, True, 128),
+    (1, 2, 2, 512, 128, True, 256),
+]
+# The LM slice: qwen2-0.5b at full width; the prefill_32k shape with its
+# global batch cut from 32 to 1 (the fp32 logits of every position take
+# 19.9 GB per sequence); serving as launch/serve.py draws its requests.
+LM_ARCH = "qwen2-0.5b"
+FLASH_PLAIN_LEN = 4096  # the longest prompt the materialising plain version fits
+SERVE_REQUESTS = 16
+SERVE_PROMPT_LEN = 32
+SERVE_CACHE_LEN = 128
+SERVE_SLOTS = 8
+# A kernel-path logit difference may be at most this many times the
+# control's: the difference between two sound plain computations of the same
+# logits (prefill: 64- vs 512-key blocks; first tokens: the chunked prefill
+# vs the serving prefill's decode steps).
+PREFILL_DIFF_FACTOR = 2.0
+MLDA_KERNELS = ("swe_fused_step", "swe_sweep", "matern52")
+KERNEL_ORDER = MLDA_KERNELS + ("flash_attention",)
 
 
 def fail(msg: str) -> None:
@@ -70,9 +146,9 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def bound_ms(n_bytes: float, n_flops: float):
+def bound_ms(n_bytes: float, n_flops: float, peak_flops: float = PEAK_FP32_FLOPS):
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = n_flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -115,7 +191,7 @@ def phase_build():
     from repro_torch.kernels.build import LIBRARY
 
     t0 = time.perf_counter()
-    LIBRARY.build(["swe_flux", "matern"])
+    LIBRARY.build(["swe_flux", "matern", "flash_attention"])
     print(f"[1] built kernels in {time.perf_counter() - t0:.1f}s into {LIBRARY.build_dir}")
     for name, log in sorted(LIBRARY.ptxas_log.items()):
         print(f"[1] nvcc -Xptxas -v ({name}.cu):")
@@ -255,22 +331,160 @@ def phase_kernels(torch, rows):
         "swe_fused_step": dict(
             route="cuda", source="src/repro_torch/csrc/swe_flux.cu",
             replaces="src/repro/kernels/swe_flux/swe_flux.py:204",
-            max_abs_err=fused_err, ms=fused_ms, plain_ms=fused_plain_ms,
+            max_abs_err=fused_err, shape=f"({B}, {ny}, {nx}) fp32", ms=fused_ms, plain_ms=fused_plain_ms,
             bound_ms=f_bound[0], bound_by=f_bound[1], library_ms=None,
         ),
         "swe_sweep": dict(
             route="cuda", source="src/repro_torch/csrc/swe_flux.cu",
             replaces="src/repro/kernels/swe_flux/swe_flux.py:108",
-            max_abs_err=sweep_err, ms=sweep_ms, plain_ms=sweep_plain_ms,
+            max_abs_err=sweep_err, shape=f"({ny}, {nx}) fp32, x sweep", ms=sweep_ms, plain_ms=sweep_plain_ms,
             bound_ms=s_bound[0], bound_by=s_bound[1], library_ms=None,
         ),
         "matern52": dict(
             route="cuda", source="src/repro_torch/csrc/matern.cu",
             replaces="src/repro/kernels/matern/matern.py:58",
-            max_abs_err=matern_err, ms=matern_ms, plain_ms=matern_plain_ms,
+            max_abs_err=matern_err, shape="(8, 2) x (512, 2) fp32", ms=matern_ms, plain_ms=matern_plain_ms,
             bound_ms=m_bound[0], bound_by=m_bound[1], library_ms=None,
         ),
     })
+
+
+def _top2_gap(torch, logits) -> float:
+    top = torch.topk(logits.float(), 2).values
+    return float(top[0] - top[1])
+
+
+def flash_checks(torch):
+    """Every comparison of the flash kernel (whichever library
+    ``build.LIBRARY`` loads) with a plain version on the card, as
+    ``(label, measure, error, limit)``, and the qwen2-shaped bf16 inputs at
+    4096 and at the prefill length."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models.chunked_attention import attention_chunked
+
+    gen = torch.Generator().manual_seed(4)
+    out = []
+
+    def qkv(b, h, hkv, s, d, dtype):
+        return [torch.randn(shape, generator=gen).to("cuda", dtype)
+                for shape in ((b, h, s, d), (b, hkv, s, d), (b, hkv, s, d))]
+
+    def record(label, got, want, atol, row_rtol=None):
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        out.append((label, "max abs err", float(diff.max()), atol))
+        if row_rtol is not None:
+            row = diff.amax(-1) / want.float().abs().amax(-1).clamp_min(1e-30)
+            out.append((label, "max row-relative err", float(row.max()), row_rtol))
+
+    for (b, h, hkv, s, d, causal, window) in FLASH_CASES:
+        q, k, v = qkv(b, h, hkv, s, d, torch.float32)
+        record(f"fp32 {(b, h, hkv, s, d)} causal={causal} window={window}",
+               fa.flash_attention(q, k, v, causal=causal, window=window),
+               attention_ref(q, k, v, causal=causal, window=window), FLASH_FP32_ATOL)
+    q, k, v = qkv(1, 2, 2, 128, 64, torch.bfloat16)
+    record("bf16 (1, 2, 2, 128, 64) vs fp32 plain on the same values",
+           fa.flash_attention(q, k, v), attention_ref(q.float(), k.float(), v.float()),
+           FLASH_BF16_ATOL)
+
+    # qwen2-0.5b's attention: 14 query heads on 2 kv heads, head dim 64.
+    # attention_ref rounds its scores to bf16 (the kernel keeps them in
+    # fp32), so the per-row measure is taken against attention_chunked.
+    cfg = _lm_config()
+    h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    s4, s_long = FLASH_PLAIN_LEN, _prefill_len()
+    short = qkv(1, h, hkv, s4, d, torch.bfloat16)
+    got = fa.flash_attention(*short)
+    record(f"bf16 (1, {h}, {hkv}, {s4}, {d}) causal vs attention_ref", got,
+           attention_ref(*short), FLASH_BF16_ATOL)
+    record(f"bf16 (1, {h}, {hkv}, {s4}, {d}) causal vs attention_chunked", got,
+           attention_chunked(*short), FLASH_BF16_ATOL, FLASH_BF16_ROW_RTOL)
+    for dtype, name, atol, row_rtol in (
+        (torch.float32, "fp32", FLASH_FP32_ATOL, FLASH_FP32_ROW_RTOL),
+        (torch.bfloat16, "bf16", FLASH_BF16_ATOL, FLASH_BF16_ROW_RTOL),
+    ):
+        long = qkv(1, h, hkv, s_long, d, dtype)
+        record(f"{name} (1, {h}, {hkv}, {s_long}, {d}) causal vs attention_chunked",
+               fa.flash_attention(*long), attention_chunked(*long), atol, row_rtol)
+    return out, short, long
+
+
+def phase_flash(torch, rows):
+    """Flash attention against its plain versions, and its times."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    checks, (q4, k4, v4), (q, k, v) = flash_checks(torch)
+    for label, measure, err, limit in checks:
+        print(f"[2] flash_attention {label}: {measure} {err:.3e} (limit {limit:.3e})")
+        if not err < limit:
+            fail(f"flash_attention {label}: {measure} {err} >= {limit}")
+    h, hkv, s_long, d = q.shape[1], k.shape[1], q.shape[2], q.shape[3]
+    s4 = q4.shape[2]
+
+    ms = device_time_ms(torch, lambda: fa.flash_attention(q, k, v), 5, warmup=1)
+    ms4 = device_time_ms(torch, lambda: fa.flash_attention(q4, k4, v4), 20)
+    plain_ms4 = device_time_ms(torch, lambda: attention_ref(q4, k4, v4), 5, warmup=1)
+    library_ms = device_time_ms(
+        torch, lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True),
+        20,
+    )
+    pairs = s_long * (s_long + 1) // 2  # visible (q, k) pairs under the causal mask
+    f_bound = bound_ms((2 * h + 2 * hkv) * s_long * d * 2, 4 * h * d * pairs, PEAK_BF16_FLOPS)
+    print(f"[2] flash_attention device time per call (CUDA events): (1, {h}, {hkv}, {s_long}, "
+          f"{d}) bf16 causal {ms:.4f} ms (bound {f_bound[0]:.4f} ms by {f_bound[1]}; "
+          f"scaled_dot_product_attention {library_ms:.4f} ms); at S={s4} kernel "
+          f"{ms4:.4f} ms, plain attention_ref {plain_ms4:.4f} ms")
+    rows["flash_attention"] = dict(
+        route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:113",
+        max_abs_err=max(err for label, measure, err, _ in checks
+                        if label.startswith(f"bf16 (1, {h}, ") and measure == "max abs err"),
+        shape=f"(1, {h}, {hkv}, {s_long}, {d}) bf16 causal", ms=ms,
+        plain_ms=plain_ms4, plain_shape=f"(1, {h}, {hkv}, {s4}, {d}) bf16 causal, attention_ref",
+        ms_at_plain_shape=ms4, bound_ms=f_bound[0], bound_by=f_bound[1], library_ms=library_ms,
+    )
+
+
+def phase_planted_faults(torch) -> None:
+    """Build each of ``PLANTED_FAULTS`` from an edited copy of the flash
+    kernel's source under build/planted/ and run the flash checks on it:
+    each fault must fail one, or the checks are too weak to trust."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels import build
+
+    src = (build.CSRC / "flash_attention.cu").read_text()
+    libs = {}
+    for name, (old, new) in PLANTED_FAULTS.items():
+        if src.count(old) != 1:
+            fail(f"planted fault {name}: its edit does not match the source exactly once")
+        d = REPO / "build" / "planted" / name
+        d.mkdir(parents=True, exist_ok=True)
+        (d / "flash_attention.cu").write_text(src.replace(old, new))
+        libs[name] = build.KernelLibrary(d / "kernels", csrc=d)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(libs)) as pool:
+        list(pool.map(lambda lib: lib.build(["flash_attention"]), libs.values()))
+    print(f"[2] built {len(libs)} planted faults of flash_attention.cu in "
+          f"{time.perf_counter() - t0:.1f}s")
+    committed = build.LIBRARY
+    for name, lib in libs.items():
+        build.LIBRARY = lib
+        checks, _, _ = flash_checks(torch)
+        build.LIBRARY = committed
+        failed = [c for c in checks if not c[2] < c[3]]
+        for label, measure, err, limit in checks:
+            print(f"[2] planted fault {name}: {label}: {measure} {err:.3e} (limit {limit:.3e})"
+                  f"{'' if err < limit else ' REJECTED'}")
+        n_abs = sum(1 for c in failed if c[1] == "max abs err")
+        print(f"[2] planted fault {name}: rejected by {len(failed)} of {len(checks)} flash "
+              f"checks ({n_abs} absolute, {len(failed) - n_abs} per row)")
+        if not failed:
+            fail(f"planted fault {name} passes every flash check")
 
 
 # ---------------------------------------------------------------------------
@@ -343,7 +557,7 @@ def phase_main_path(torch, w, rows):
     launches = {name: c.value for name, c in build.COUNTERS.items()}
     print(f"[4] main path wall {wall:.1f}s; stage walls {res['walls']}; "
           f"kernel launches {launches}")
-    for name in rows:
+    for name in MLDA_KERNELS:
         rows[name]["launches"] = launches.get(name, 0)
         if rows[name]["launches"] <= 0:
             fail(f"kernel {name} was not launched by the main path")
@@ -390,6 +604,237 @@ def phase_main_path(torch, w, rows):
           "against the coarse solves it was trained on")
 
 
+# ---------------------------------------------------------------------------
+# phases 5 and 6: the LM slice at full width
+# ---------------------------------------------------------------------------
+def _lm_config():
+    from repro_torch.configs import ARCHS
+
+    return ARCHS[LM_ARCH]
+
+
+def _prefill_len() -> int:
+    from repro_torch.configs import SHAPES
+
+    return SHAPES["prefill_32k"].seq_len
+
+
+def phase_lm_prefill(torch, cfg, params, rows):
+    from repro_torch.kernels import build
+    from repro_torch.models import build_model
+    from repro_torch.models import chunked_attention
+
+    s = _prefill_len()
+    gen = torch.Generator().manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab, (1, s), generator=gen).cuda()
+    print(f"[5] prefill: {cfg.arch_id} full width ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, vocab {cfg.vocab}), "
+          f"{cfg.compute_dtype}, seeded random weights; one {s}-token prompt (prefill_32k with its "
+          "global batch cut from 32 to 1)")
+    # The kernel path, then the plain blocked attention with 512-key blocks
+    # (the default) and, as the control, with 64-key blocks: two sound
+    # computations that differ only in where p is rounded, as the kernel's
+    # 64-key tiles differ from the 512-key blocks.
+    plain = chunked_attention.attention_chunked
+    out = {}
+    for impl, block_k in (("kernel", None), ("chunked", 512), ("chunked", 64)):
+        label = impl if block_k is None else f"{impl}/{block_k}"
+        if block_k:
+            chunked_attention.attention_chunked = partial(plain, block_k=block_k)
+        bundle = build_model(replace(cfg, attn_impl=impl))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_counters()
+        t0 = time.perf_counter()
+        logits = bundle.prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        chunked_attention.attention_chunked = plain
+        launches = build.counter("flash_attention").value
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"[5] prefill attn_impl={label}: {wall:.3f} s wall, peak memory {peak:.2f} GiB, "
+              f"flash_attention launches {launches}")
+        if impl == "kernel":
+            if launches != cfg.n_layers:
+                fail(f"prefill launched flash_attention {launches} times, want {cfg.n_layers}")
+            rows["flash_attention"]["launches"] = launches
+        elif launches != 0:
+            fail(f"the chunked prefill launched flash_attention {launches} times")
+        if logits.shape != (1, 1, cfg.vocab) or not bool(torch.isfinite(logits).all()):
+            fail(f"prefill ({label}) logits {tuple(logits.shape)} are not finite (1, 1, V)")
+        out[label] = logits[0, -1]
+
+    def diff(a, b):
+        return float((out[a] - out[b]).abs().max())
+
+    d_kernel, d_ctrl = diff("kernel", "chunked/512"), diff("chunked/64", "chunked/512")
+    print(f"[5] last-position logits (range {float(out['kernel'].min()):.3f}.."
+          f"{float(out['kernel'].max()):.3f}), max abs diff: kernel vs chunked/512 "
+          f"{d_kernel:.4e}, control chunked/64 vs chunked/512 {d_ctrl:.4e}, kernel vs "
+          f"chunked/64 {diff('kernel', 'chunked/64'):.4e}; argmax "
+          + " / ".join(f"{k} {int(x.argmax())}" for k, x in out.items()))
+    if not d_kernel <= PREFILL_DIFF_FACTOR * d_ctrl:
+        fail(f"kernel-path logits differ from the plain path's by {d_kernel}, more than "
+             f"{PREFILL_DIFF_FACTOR}x the control's {d_ctrl}")
+
+
+def phase_lm_serving(torch, cfg, params):
+    import numpy as np
+
+    from repro_torch.models import build_model
+    from repro_torch.models.lm import decode_step, pool_decode_state, slot_insert
+    from repro_torch.runtime.serve_loop import ServingEngine, serving_metrics
+
+    name = cfg.arch_id
+    rng = np.random.default_rng(0)
+    work = []
+    for _ in range(SERVE_REQUESTS):  # as launch/serve.py draws them (one variant)
+        rng.integers(1)
+        n_new = int(rng.choice([1, 4, 16, 64], p=[0.4, 0.3, 0.2, 0.1]))
+        work.append((rng.integers(0, cfg.vocab, size=(1, SERVE_PROMPT_LEN)), n_new))
+    warm = np.random.default_rng(1).integers(0, cfg.vocab, size=(1, SERVE_PROMPT_LEN))
+    tokens = {}
+    for mode in ("continuous", "generation"):
+        with ServingEngine({name: cfg}, mode=mode, n_slots=SERVE_SLOTS,
+                           cache_len=SERVE_CACHE_LEN, device="cuda",
+                           params={name: params}) as eng:
+            eng.submit(name, warm, 2).result(timeout=600)
+            t0 = time.monotonic()
+            gens = [eng.submit(name, p, n) for p, n in work]
+            for g in gens:
+                g.result(timeout=600)
+            wall = time.monotonic() - t0
+            m = serving_metrics(gens, wall, eng.summary())
+        tokens[mode] = [g.result().tokens for g in gens]
+        print(f"[6] serving {mode}: {m['n_requests']} requests, {m['n_tokens']} tokens in "
+              f"{wall:.3f} s -> {m['tokens_per_s']:.1f} tok/s; ttft mean "
+              f"{m['ttft_mean_s'] * 1e3:.2f} ms p99 {m['ttft_p99_s'] * 1e3:.2f} ms; per-token "
+              f"p50 {m['per_token_p50_s'] * 1e3:.2f} ms p99 {m['per_token_p99_s'] * 1e3:.2f} ms; "
+              f"slot occupancy {m.get('slot_occupancy', {})}")
+        for toks, (_, n_new) in zip(tokens[mode], work):
+            if len(toks) != n_new:
+                fail(f"{mode}: a request asked for {n_new} tokens and got {len(toks)}")
+
+    # First tokens against the kernel path's prefill.  delta_first, the
+    # control, is the largest logit difference between two computations that
+    # do not run the kernel: the chunked-attention prefill and the serving
+    # prefill (decode steps over the same prompt).  The kernel prefill may
+    # differ from the serving prefill by at most PREFILL_DIFF_FACTOR times
+    # delta_first, and a first token may differ from its argmax only where
+    # its top-2 gap is below 2 delta_first.
+    bundle = build_model(cfg)
+    chunked = build_model(replace(cfg, attn_impl="chunked"))
+    pairs, delta_first, delta_kernel = [], 0.0, 0.0
+    for p, _ in work:
+        t = torch.as_tensor(p).cuda()
+        lk = bundle.prefill(params, {"tokens": t})[0, -1]
+        lc = chunked.prefill(params, {"tokens": t})[0, -1]
+        ls = bundle.prefill_state(params, t, SERVE_CACHE_LEN)[0][0, -1]
+        delta_first = max(delta_first, float((lc - ls).abs().max()))
+        delta_kernel = max(delta_kernel, float((lk - ls).abs().max()))
+        pairs.append((lk, ls))
+    print(f"[6] prefill logits vs the serving prefill: kernel path {delta_kernel:.4e}, "
+          f"chunked path (control, delta_first) {delta_first:.4e}")
+    if not delta_kernel <= PREFILL_DIFF_FACTOR * delta_first:
+        fail(f"kernel prefill differs from the serving prefill by {delta_kernel}, more than "
+             f"{PREFILL_DIFF_FACTOR}x the chunked path's {delta_first}")
+    n_first = 0
+    for i, (lk, _) in enumerate(pairs):
+        if int(tokens["continuous"][i][0]) != int(tokens["generation"][i][0]):
+            fail(f"request {i}: first tokens differ between modes (same B=1 prefill)")
+        if int(tokens["generation"][i][0]) != int(lk.argmax()):
+            gap = _top2_gap(torch, lk)
+            print(f"[6] request {i}: first token {int(tokens['generation'][i][0])} vs kernel "
+                  f"prefill argmax {int(lk.argmax())}, top-2 gap {gap:.4e}")
+            if not gap < 2 * delta_first:
+                fail(f"request {i}: first token diverges at top-2 gap {gap} >= 2 delta")
+            n_first += 1
+
+    # Across modes.  delta_mode is the largest logit difference between the
+    # B = 1 decode step (generation) and the 8-slot pooled step (continuous)
+    # on the same teacher-forced tokens.  Both run the same code on the same
+    # weights, so delta_mode must stay below the control delta_first.
+    delta_mode, ref_logits, replay_mismatch = 0.0, [], 0
+    for (p, _), g in zip(work, tokens["generation"]):
+        steps = []
+        if len(g) > 1:
+            _, st1 = bundle.prefill_state(params, torch.as_tensor(p).cuda(), SERVE_CACHE_LEN)
+            pool = pool_decode_state(cfg, SERVE_SLOTS, SERVE_CACHE_LEN, "cuda")
+            for slot in range(SERVE_SLOTS):
+                pool = slot_insert(pool, st1, slot)
+            for j in range(1, len(g)):
+                l1, st1 = decode_step(params, cfg, st1, torch.full((1, 1), int(g[j - 1]),
+                                                                   device="cuda"))
+                l8, pool = decode_step(params, cfg, pool, torch.full((SERVE_SLOTS, 1),
+                                                                     int(g[j - 1]), device="cuda"))
+                delta_mode = max(delta_mode, float((l1[0, -1] - l8[0, -1]).abs().max()))
+                steps.append(l1[0, -1])
+                replay_mismatch += int(int(l1[0, -1].argmax()) != int(g[j]))
+        ref_logits.append(steps)
+    n_mode = 0
+    for i, (c, g) in enumerate(zip(tokens["continuous"], tokens["generation"])):
+        if np.array_equal(c, g):
+            continue
+        j = int(np.flatnonzero(c != g)[0])
+        gap = _top2_gap(torch, ref_logits[i][j - 1])
+        print(f"[6] request {i}: modes diverge at token {j} ({int(c[j])} vs {int(g[j])}), "
+              f"top-2 gap {gap:.4e}")
+        if not gap < 2 * delta_mode:
+            fail(f"request {i}: modes diverge at top-2 gap {gap} >= 2 delta ({delta_mode})")
+        n_mode += 1
+    if not delta_mode <= delta_first:
+        fail(f"B=1 and {SERVE_SLOTS}-slot decode differ by {delta_mode}, more than the "
+             f"control {delta_first}")
+    print(f"[6] delta (chunked prefill vs serving prefill) {delta_first:.4e}: {n_first} of "
+          f"{len(work)} first tokens differ, each at a near tie; delta (B=1 vs {SERVE_SLOTS}-slot "
+          f"decode, teacher-forced) {delta_mode:.4e}: {n_mode} of {len(work)} requests diverge "
+          f"between modes, each at a near tie; teacher-forced replay mismatches "
+          f"{replay_mismatch}")
+    if replay_mismatch:
+        fail(f"the teacher-forced B=1 replay disagrees with generation mode {replay_mismatch} "
+             "times: the card's products are not reproducible")
+
+    # Where a decode step's time goes: host ops issued against kernel time
+    # on the card, over a short profiler window of B = 1 steps.
+    from torch.profiler import ProfilerActivity, profile
+
+    _, st = bundle.prefill_state(params, torch.as_tensor(work[0][0]).cuda(), SERVE_CACHE_LEN)
+    feed = torch.zeros((1, 1), dtype=torch.int64, device="cuda")
+    n_steps = 5
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            _, st = decode_step(params, cfg, st, feed)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    ops = [e for e in events if e.name.startswith("aten::") and e.device_type != torch.autograd.DeviceType.CUDA
+           and (e.cpu_parent is None or not e.cpu_parent.name.startswith("aten::"))]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / n_steps
+    wall_ms = wall * 1e3 / n_steps
+    if kernels:
+        print(f"[6] decode step B=1 (profiler, {n_steps} steps): {wall_ms:.3f} ms wall, "
+              f"{len(ops) / n_steps:.0f} top-level host ops and {len(kernels) / n_steps:.0f} "
+              f"kernels per step, kernel time {busy_ms:.3f} ms: device busy "
+              f"{busy_ms / wall_ms:.1%}, idle {1 - busy_ms / wall_ms:.1%}")
+    else:
+        print(f"[6] decode step B=1: {wall_ms:.3f} ms wall under the profiler, "
+              f"{len(ops) / n_steps:.0f} host ops per step; device time not measured "
+              "(the profiler saw no kernels)")
+
+
+def phase_lm(torch, rows):
+    """Phases 5 and 6 on one set of seeded full-width weights."""
+    from repro_torch.models import build_model
+
+    cfg = _lm_config()
+    params = build_model(cfg).init(torch.Generator().manual_seed(0), "cuda")
+    phase_lm_prefill(torch, cfg, params, rows)
+    phase_lm_serving(torch, cfg, params)
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run from a checkout")
@@ -411,13 +856,16 @@ def main() -> None:
     phase_build()
     rows: dict = {}
     phase_kernels(torch, rows)
+    phase_flash(torch, rows)
+    phase_planted_faults(torch)
     phase_batch_invariance(torch, PAPER)
     phase_main_path(torch, PAPER, rows)
-    print(f"[5] all phases passed in {time.perf_counter() - t_start:.1f}s")
-    order = ("swe_fused_step", "swe_sweep", "matern52")
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
-    kernels = [{k: dict(rows[n], name=n)[k] for k in keys} for n in order]
+    phase_lm(torch, rows)
+    print(f"[7] all phases passed in {time.perf_counter() - t_start:.1f}s")
+    keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")
+    kernels = [{"name": n, **{k: rows[n][k] for k in keys},
+                **{k: x for k, x in rows[n].items() if k not in keys}} for n in KERNEL_ORDER]
     for k in kernels:
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms"):
             if not math.isfinite(k[key]):

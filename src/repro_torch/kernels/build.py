@@ -59,10 +59,12 @@ class LaunchCounter:
 
 
 class KernelLibrary:
-    """Builds (once) and loads (once) the shared libraries of ``csrc/``."""
+    """Builds (once) and loads (once) the shared libraries of a source
+    directory (``csrc/`` unless told otherwise)."""
 
-    def __init__(self, build_dir: Path = BUILD_DIR) -> None:
+    def __init__(self, build_dir: Path = BUILD_DIR, csrc: Path = CSRC) -> None:
         self.build_dir = build_dir
+        self.csrc = csrc
         self.ptxas_log: Dict[str, str] = {}
         self._libs: Dict[str, ctypes.CDLL] = {}
         self._lock = threading.Lock()
@@ -82,7 +84,7 @@ class KernelLibrary:
         return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
 
     def target(self, name: str) -> Path:
-        src = CSRC / f"{name}.cu"
+        src = self.csrc / f"{name}.cu"
         digest = hashlib.sha256(
             src.read_bytes() + " ".join(self.flags(name)).encode()
         ).hexdigest()[:16]
@@ -98,7 +100,7 @@ class KernelLibrary:
                 continue
             self.build_dir.mkdir(parents=True, exist_ok=True)
             tmp = so.with_name(f"{so.name}.{os.getpid()}.{threading.get_ident()}.tmp")
-            cmd = [self.nvcc(), *self.flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            cmd = [self.nvcc(), *self.flags(name), "-o", str(tmp), str(self.csrc / f"{name}.cu")]
             proc = subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
             )

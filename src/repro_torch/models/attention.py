@@ -1,0 +1,148 @@
+"""GQA attention with RoPE and optional QKV bias: prefill and decode.
+
+The reference's ``models/attention.py`` for one card: the sharding
+constraints are gone, and the decode cache carries a position per batch row
+(``pos`` (B,), ``pos_buf`` (B, W)), so rows admitted at different token
+boundaries decode together in one batched step where the reference
+``vmap``s a B = 1 step over the slots.  The decode cache is updated in
+place (it is the largest state a step touches).  The paged and chunked
+decode functions of the reference are not ported (ROADMAP Queue 1 item 10).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.flash_attention.ops import attention as attn_op
+
+from .layers import Params, apply_rope, dense_init
+
+
+def init_attention(gen: torch.Generator, cfg: ArchConfig, dtype, device) -> Params:
+    hd = cfg.hd
+    p: Params = {
+        "wq": dense_init(gen, cfg.d_model, cfg.n_heads * hd, dtype, device),
+        "wk": dense_init(gen, cfg.d_model, cfg.n_kv_heads * hd, dtype, device),
+        "wv": dense_init(gen, cfg.d_model, cfg.n_kv_heads * hd, dtype, device),
+        "wo": dense_init(gen, cfg.n_heads * hd, cfg.d_model, dtype, device),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((cfg.n_heads * hd,), dtype=dtype, device=device)
+        p["bk"] = torch.zeros((cfg.n_kv_heads * hd,), dtype=dtype, device=device)
+        p["bv"] = torch.zeros((cfg.n_kv_heads * hd,), dtype=dtype, device=device)
+    return p
+
+
+def _project_qkv(params: Params, x: torch.Tensor, cfg: ArchConfig):
+    """(B, S, d) -> q (B, H, S, hd), k and v (B, Hkv, S, hd)."""
+    b, s, _ = x.shape
+    hd = cfg.hd
+    q = x @ params["wq"]
+    k = x @ params["wk"]
+    v = x @ params["wv"]
+    if "bq" in params:
+        q = q + params["bq"]
+        k = k + params["bk"]
+        v = v + params["bv"]
+    q = q.reshape(b, s, cfg.n_heads, hd).transpose(1, 2)
+    k = k.reshape(b, s, cfg.n_kv_heads, hd).transpose(1, 2)
+    v = v.reshape(b, s, cfg.n_kv_heads, hd).transpose(1, 2)
+    return q, k, v
+
+
+def attention_train(
+    params: Params,
+    x: torch.Tensor,  # (B, S, d)
+    cfg: ArchConfig,
+    *,
+    causal: bool = True,
+    positions: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Full-sequence attention (training forward and prefill) -> (B, S, d)."""
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(params, x, cfg)
+    if cfg.rope_theta > 0:
+        pos = positions if positions is not None else torch.arange(s, device=x.device)
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+    o = attn_op(
+        q.contiguous(), k.contiguous(), v.contiguous(),
+        causal=causal, window=cfg.sliding_window, impl=cfg.attn_impl,
+    )  # (B, H, S, hd)
+    o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.hd)
+    return o @ params["wo"]
+
+
+# ---------------------------------------------------------------------------
+# Decode path (one new token per row against a KV cache)
+# ---------------------------------------------------------------------------
+class KVCache(NamedTuple):
+    """Per-layer-stacked rolling KV cache.
+
+    ``k``/``v``: (L, B, Hkv, W, hd) where W = min(seq_len, sliding_window).
+    ``pos_buf``: (B, W) logical position stored in each physical slot of each
+    row (-1 = empty), shared across layers.
+    """
+
+    k: torch.Tensor
+    v: torch.Tensor
+    pos_buf: torch.Tensor
+
+
+def init_kv_cache(cfg: ArchConfig, batch: int, seq_len: int, dtype, device) -> KVCache:
+    w = min(seq_len, cfg.sliding_window or seq_len)
+    shape = (cfg.n_layers, batch, cfg.n_kv_heads, w, cfg.hd)
+    return KVCache(
+        k=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape, dtype=dtype, device=device),
+        pos_buf=torch.full((batch, w), -1, dtype=torch.int64, device=device),
+    )
+
+
+def decode_qkv(params: Params, x: torch.Tensor, pos: torch.Tensor, cfg: ArchConfig):
+    """Project + RoPE one decode position per row: x (B, 1, d), pos (B,) ->
+    q (B, H, 1, hd), k and v (B, Hkv, 1, hd)."""
+    q, k_new, v_new = _project_qkv(params, x, cfg)
+    if cfg.rope_theta > 0:
+        q = apply_rope(q, pos[:, None], cfg.rope_theta)
+        k_new = apply_rope(k_new, pos[:, None], cfg.rope_theta)
+    return q, k_new, v_new
+
+
+def attention_decode(
+    params: Params,
+    x: torch.Tensor,  # (B, 1, d)
+    layer_k: torch.Tensor,  # (B, Hkv, W, hd) this layer's cache
+    layer_v: torch.Tensor,
+    pos_buf: torch.Tensor,  # (B, W)
+    pos: torch.Tensor,  # (B,) current position of each row
+    cfg: ArchConfig,
+):
+    """Returns (out (B, 1, d), layer_k, layer_v, pos_buf); the cache and
+    ``pos_buf`` are written in place at slot ``pos % W`` of each row."""
+    b = x.shape[0]
+    hd = cfg.hd
+    w = layer_k.shape[2]
+    q, k_new, v_new = decode_qkv(params, x, pos, cfg)
+
+    rows = torch.arange(b, device=x.device)
+    slot = torch.remainder(pos, w)
+    layer_k[rows, :, slot] = k_new[:, :, 0]
+    layer_v[rows, :, slot] = v_new[:, :, 0]
+    pos_buf[rows, slot] = pos
+
+    group = cfg.n_heads // cfg.n_kv_heads
+    qg = q.reshape(b, cfg.n_kv_heads, group, hd)
+    # fp32 accumulation of the input values (the reference's
+    # preferred_element_type=float32).
+    scores = torch.einsum("bkgd,bksd->bkgs", qg.float(), layer_k.float()) * (hd**-0.5)
+    valid = (pos_buf >= 0) & (pos_buf <= pos[:, None])  # (B, W)
+    if cfg.sliding_window is not None:
+        valid = valid & (pos_buf > pos[:, None] - cfg.sliding_window)
+    scores = torch.where(valid[:, None, None, :], scores, -1e30)
+    p = torch.softmax(scores, dim=-1)
+    o = torch.einsum("bkgs,bksd->bkgd", p.to(layer_v.dtype), layer_v)
+    o = o.reshape(b, 1, cfg.n_heads * hd)
+    return o @ params["wo"], layer_k, layer_v, pos_buf

@@ -1,0 +1,67 @@
+"""Flash-style blocked attention in plain PyTorch.
+
+The reference's ``models/chunked_attention.py``: the whole query against
+one block of keys at a time, with a running (max, sum, acc) online softmax,
+so the (B, H, S, S) scores never exist; peak memory per block is
+(B, H, S, block_k) fp32 scores.  It serves ``attn_impl="chunked"``,
+attention with unequal query and key lengths, and, on the card, the
+check of the flash kernel at lengths where the materialising plain version
+does not fit (32k tokens: 60 GB of scores).
+
+Both products accumulate in fp32 from the inputs' own values, as the
+reference's ``preferred_element_type=float32`` does; ``p`` is rounded to
+the value type before the PV product.  The reference pads the last key
+block; here it is simply shorter, which computes the same sums.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+NEG_INF = -1e30
+
+
+def attention_chunked(
+    q: torch.Tensor,  # (B, H, S, D)
+    k: torch.Tensor,  # (B, Hkv, Skv, D)
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+    block_k: int = 512,
+) -> torch.Tensor:
+    b, h, s, d = q.shape
+    hkv, s_kv = k.shape[1], k.shape[2]
+    group = h // hkv
+    if scale is None:
+        scale = d**-0.5
+    if group > 1:
+        k = k.repeat_interleave(group, dim=1)
+        v = v.repeat_interleave(group, dim=1)
+    qf = q.float()
+    rows = torch.arange(s, device=q.device)[:, None]  # absolute q index
+    m = torch.full((b, h, s), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, h, s), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, h, s, d), dtype=torch.float32, device=q.device)
+    bk = min(block_k, s_kv)
+    for k_start in range(0, s_kv, bk):
+        kblk = k[:, :, k_start : k_start + bk]
+        vblk = v[:, :, k_start : k_start + bk]
+        sc = (qf @ kblk.float().transpose(-1, -2)) * scale  # (B, H, S, bk)
+        cols = k_start + torch.arange(kblk.shape[2], device=q.device)[None, :]
+        mask = cols < s_kv
+        if causal:
+            mask = mask & (cols <= rows)
+        if window is not None:
+            mask = mask & (cols > rows - window)
+        sc = torch.where(mask, sc, NEG_INF)
+        m_new = torch.maximum(m, sc.amax(dim=-1))
+        p = torch.exp(sc - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + p.to(vblk.dtype).float() @ vblk.float()
+        m = m_new
+    safe = torch.where(l > 0, l, 1.0)
+    return (acc / safe[..., None]).to(q.dtype)

@@ -1,0 +1,78 @@
+"""Shared transformer primitives (plain PyTorch, parameters as dicts)."""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+Params = Dict[str, Any]
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}[name]
+
+
+# -- init helpers ------------------------------------------------------------
+def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype, device,
+               scale: Optional[float] = None) -> torch.Tensor:
+    scale = scale if scale is not None else d_in**-0.5
+    w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32) * scale
+    return w.to(device=device, dtype=dtype)
+
+
+def embed_init(gen: torch.Generator, vocab: int, d: int, dtype, device) -> torch.Tensor:
+    w = torch.randn((vocab, d), generator=gen, dtype=torch.float32) * 0.02
+    return w.to(device=device, dtype=dtype)
+
+
+# -- norms -------------------------------------------------------------------
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * w.float()).to(dt)
+
+
+# -- rotary embeddings ---------------------------------------------------------
+def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta**exponent)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (B, H, S, D); positions: (S,) or (B, S).
+
+    Rotates the interleaved pairs ``(x[..., ::2], x[..., 1::2])`` and
+    interleaves them back, as the reference does (not the rotate-half
+    layout)."""
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)  # (D/2,)
+    ang = positions.to(torch.float32)[..., None] * freqs  # (..., S, D/2)
+    ang = ang[None, None] if ang.ndim == 2 else ang[:, None]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., ::2], x[..., 1::2]
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    return torch.stack([y1, y2], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+# -- MLP (SwiGLU, the only kind ported) ------------------------------------------
+def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, kind: str, dtype, device) -> Params:
+    if kind != "swiglu":
+        raise ValueError(kind)
+    return {
+        "w_gate": dense_init(gen, d_model, d_ff, dtype, device),
+        "w_up": dense_init(gen, d_model, d_ff, dtype, device),
+        "w_down": dense_init(gen, d_ff, d_model, dtype, device),
+    }
+
+
+def mlp(params: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
+    if kind != "swiglu":
+        raise ValueError(kind)
+    return (F.silu(x @ params["w_gate"]) * (x @ params["w_up"])) @ params["w_down"]
+
+
+def unembed(x: torch.Tensor, w_embed: torch.Tensor) -> torch.Tensor:
+    """Tied unembedding: (..., d) x (V, d) -> (..., V) in fp32."""
+    return x.float() @ w_embed.float().T

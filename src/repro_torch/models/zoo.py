@@ -1,0 +1,101 @@
+"""Model zoo: serving entry points, input shapes and weights carried across
+from the reference for the dense architectures."""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import NOT_PORTED, ArchConfig, ShapeConfig
+
+from . import lm
+from .layers import Params, dtype_of
+
+
+@dataclass(frozen=True)
+class ModelBundle:
+    """The serving interface of one architecture (training is not ported)."""
+
+    cfg: ArchConfig
+    init: Callable  # (generator, device) -> params
+    prefill: Callable  # (params, batch) -> last-position logits (B, 1, V)
+    decode_init: Callable  # (params, batch, seq_len) -> state
+    decode_step: Callable  # (params, state, tokens (B, 1)) -> (logits, state)
+    # (params, tokens (B, S), cache_len) -> (last logits (B, 1, V), state):
+    # the prefill that also yields the decode state a slot continues from.
+    prefill_state: Callable
+
+
+def build_model(cfg: ArchConfig) -> ModelBundle:
+    if cfg.family != "dense":
+        raise NotImplementedError(f"family '{cfg.family}': {NOT_PORTED}")
+    return ModelBundle(
+        cfg=cfg,
+        init=lambda gen, device="cuda": lm.init_params(gen, cfg, device),
+        prefill=lambda p, b: lm.prefill(p, cfg, b),
+        decode_init=lambda p, b, s: lm.init_decode_state(
+            cfg, b["tokens"].shape[0], s, p["embed"].device
+        ),
+        decode_step=lambda p, st, t: lm.decode_step(p, cfg, st, t),
+        prefill_state=lambda p, t, s: lm.prefill_state(p, cfg, t, s),
+    )
+
+
+def input_specs(
+    cfg: ArchConfig, shape: ShapeConfig, *, batch_override: Optional[int] = None
+) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """Model inputs of one (arch x shape) cell as ``{name: (shape, dtype)}``:
+    the token batch for train and prefill, the (B, 1) next tokens for decode
+    (the KV cache comes from ``decode_init``)."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"family '{cfg.family}': {NOT_PORTED}")
+    b = batch_override or shape.global_batch
+    if shape.kind == "decode":
+        return {"tokens": ((b, 1), torch.int64)}
+    specs = {"tokens": ((b, shape.seq_len), torch.int64)}
+    if shape.kind == "train":
+        specs["labels"] = ((b, shape.seq_len), torch.int64)
+    return specs
+
+
+# ---------------------------------------------------------------------------
+# Weights carried across from the reference
+# ---------------------------------------------------------------------------
+def _to_tensor(a: Any, dtype: torch.dtype, device) -> torch.Tensor:
+    a = np.array(a)  # a writable copy
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: reinterpret the bits
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device=device, dtype=dtype)
+
+
+def _per_layer(tree: Dict, n_layers: int) -> List[Dict]:
+    """A tree whose leaves are stacked on axis 0 -> one tree per layer."""
+
+    def take(node, i):
+        if isinstance(node, dict):
+            return {k: take(v, i) for k, v in node.items()}
+        return node[i]
+
+    return [take(tree, i) for i in range(n_layers)]
+
+
+def params_from_reference(tree: Dict, cfg: ArchConfig, device="cuda") -> Params:
+    """The port's parameters from the reference's ``lm.init_params`` tree
+    (numpy arrays; the layers stacked on axis 0), in ``cfg.param_dtype``."""
+    extra = sorted(set(tree) - {"blocks", "embed", "ln_f", "unembed"})
+    if extra:
+        raise NotImplementedError(f"parameter groups {extra}: {NOT_PORTED}")
+    dtype = dtype_of(cfg.param_dtype)
+
+    def convert(node):
+        if isinstance(node, dict):
+            return {k: convert(v) for k, v in node.items()}
+        return _to_tensor(node, dtype, device)
+
+    params = {k: convert(v) for k, v in tree.items() if k != "blocks"}
+    params["blocks"] = [convert(b) for b in _per_layer(tree["blocks"], cfg.n_layers)]
+    return params
