@@ -7,18 +7,20 @@ Phases (any failure exits non-zero; there is no CPU path):
 
 1. print the card's name and power limit; build the CUDA kernels of
    ``src/repro_torch/csrc`` with nvcc (one process per source, in parallel)
-   and print each build's ``-Xptxas -v`` report;
+   and print each build's ``-Xptxas -v`` report and each kernel's SASS
+   instruction count;
 2. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes (fused SWE step at 288x288 and 96x96 with B = 8, the
    directional sweep at 288x288 in x and y, Matérn at (8, 2) x (512, 2) and
    (130, 2+3) x (70, 5); flash attention over the reference's six test
-   cases in fp32, its bf16 case, and qwen2-0.5b's heads at 4096 tokens
-   against the materialising plain version and the plain blocked loop, and
-   at 32768 tokens in bf16 and fp32 against the blocked loop, the qwen2
-   shapes also per row relative to the row's size), check lake-at-rest
-   through the kernels, and time kernel and plain version with CUDA events;
-   then build the flash kernel with each of ``PLANTED_FAULTS`` written into
-   a copy of its source, and fail unless the flash checks reject every one;
+   cases in fp32 (the CUDA-core route) and in bf16 (the tensor-core route),
+   its bf16 case, and qwen2-0.5b's heads at 4096 tokens against the
+   materialising plain version and the plain blocked loop, and at 32768
+   tokens in bf16 and fp32 against the blocked loop, the bf16 cases and the
+   qwen2 shapes also per row relative to the row's size), check
+   lake-at-rest through the kernels, and time kernel and plain version with
+   CUDA events; then build each of ``PLANTED_FAULTS`` (an edit of a kernel
+   source) and fail unless the checks of that source reject every one;
 3. check batch invariance: B = 1 rows against B = 8 rows, bit for bit, for
    the coarse and fine batched forwards and for ``GaussianProcess.batch_call``;
 4. drive the MLDA main path, ``repro_torch.launch.tsunami.run``, at the
@@ -27,8 +29,8 @@ Phases (any failure exits non-zero; there is no CPU path):
    to 0 just before; every kernel of the path must launch; check the outputs
    against the plain path;
 5. the LM slice's prefill: qwen2-0.5b at full width in bf16 (seeded random
-   weights) on one 32768-token prompt, counters at 0 just before; the flash
-   kernel must launch once per layer; the last position's logits must be
+   weights) on one 32768-token prompt, counters at 0 just before; the
+   tensor-core flash kernel must launch once per layer, the fp32 one never; the last position's logits must be
    finite, and may differ from the same prefill through the plain blocked
    attention by at most twice the difference between two sound plain
    prefills (64- and 512-key blocks);
@@ -98,21 +100,32 @@ FLASH_BF16_ATOL = 3e-2
 # limits are two bf16 steps and 1e-4.
 FLASH_BF16_ROW_RTOL = 2.0**-6
 FLASH_FP32_ROW_RTOL = 1e-4
-# Planted faults: each is one textual edit of csrc/flash_attention.cu, built
-# into its own library under build/planted/; the flash checks must reject
-# every one.  A rewrite of the kernel rewrites these edits with it.
+# Planted faults: each is one textual edit of a kernel source in csrc/,
+# built into its own library under build/planted/; the checks of that
+# source's kernels (flash_checks, swe_step_checks) must reject every one.
+# A rewrite of a kernel rewrites its edits with it.
 PLANTED_FAULTS = {
-    # The diagonal kv tile left out of every query tile past row 8192: a
-    # fault of the long rows only.
+    # The diagonal kv tile left out of every query tile past row 8192 in the
+    # bf16 tensor-core kernel: a fault of the long rows only.
     "long_rows_diagonal_dropped": (
-        "if (causal) kt_hi = min(kt_hi, (q0 + q_rows - 1) / kBlockK);",
-        "if (causal) kt_hi = min(kt_hi, (q0 + q_rows - 1) / kBlockK);\n"
+        "flash_attention.cu",
+        "if (causal) kt_hi = min(kt_hi, (q0 + q_rows - 1) / kBlockN);",
+        "if (causal) kt_hi = min(kt_hi, (q0 + q_rows - 1) / kBlockN);\n"
         "  if (causal && q0 >= 8192) --kt_hi;",
     ),
-    # The accumulator not rescaled when the second kv tile raises the max.
+    # The tensor-core kernel's accumulator not rescaled when the second kv
+    # tile raises the max.
     "second_tile_rescale_skipped": (
-        "for (int c = 0; c < 4 * kCols; ++c) acc[i][c] *= alpha;",
-        "for (int c = 0; c < 4 * kCols; ++c) acc[i][c] *= (kt == kt_lo + 1 ? 1.f : alpha);",
+        "flash_attention.cu",
+        "for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];",
+        "for (int i = 0; i < D / 2; ++i) acc[i] *= (it == 1 ? 1.f : alpha[(i >> 1) & 1]);",
+    ),
+    # The fused SWE step's halo: the strip's last row reads its own row
+    # instead of the halo row past it, so its north face sees no neighbour.
+    "swe_halo_row_own_row": (
+        "swe_flux.cu",
+        "k = at(i + 2);",
+        "k = at(i + 2 - (r == kStripRows - 2));",
     ),
 }
 FLASH_CASES = [
@@ -197,6 +210,14 @@ def phase_build():
         print(f"[1] nvcc -Xptxas -v ({name}.cu):")
         for line in log.strip().splitlines():
             print(f"      {line}")
+    for name in ("swe_flux", "matern", "flash_attention"):
+        try:
+            counts = LIBRARY.sass_counts(name)
+        except (OSError, subprocess.CalledProcessError) as e:
+            print(f"[1] SASS instructions ({name}.cu): not measured ({e})")
+            continue
+        print(f"[1] SASS instructions ({name}.cu, cuobjdump -sass, NOPs left out): "
+              + "; ".join(f"{fn} {n}" for fn, n in sorted(counts.items())))
 
 
 # ---------------------------------------------------------------------------
@@ -217,20 +238,21 @@ def _swe_batch(torch, sc, thetas, n_plain_steps: int):
     return state, b, dt
 
 
-def phase_kernels(torch, rows):
-    from repro_torch.kernels.matern import ops as matern_ops
-    from repro_torch.kernels.matern.ref import matern52_ref
+def _swe_thetas(torch, gen):
+    return (torch.rand((8, 2), generator=gen) * 400.0 - 200.0).cuda()
+
+
+def swe_step_checks(torch, thetas):
+    """The fused step kernel (whichever library ``build.LIBRARY`` loads)
+    against the plain step at 288x288 and 96x96 with B = 8, one step at a
+    time from the plain trajectory's state (errors do not compound), over 4
+    steps, as ``(label, measure, error, limit)``; also the largest absolute
+    difference and the 288x288 case ``(scenario, state, b, dt)``."""
     from repro_torch.kernels.swe_flux import ops as swe_ops
-    from repro_torch.kernels.swe_flux.ref import swe_fused_step_ref, swe_sweep_ref
+    from repro_torch.kernels.swe_flux.ref import swe_fused_step_ref
     from repro_torch.swe import TohokuScenario
-    from repro_torch.swe.solver import H_EPS, SWEState
 
-    gen = torch.Generator().manual_seed(0)
-    thetas = (torch.rand((8, 2), generator=gen) * 400.0 - 200.0).cuda()
-
-    # -- fused step: kernel vs plain, one step at a time from the plain ------
-    # trajectory's state (errors do not compound), over 4 steps
-    fused_err = 0.0
+    out, fused_err = [], 0.0
     for n in (288, 96):
         sc = TohokuScenario(nx=n, ny=n)
         state, b, dt = _swe_batch(torch, sc, thetas, 3)
@@ -240,14 +262,32 @@ def phase_kernels(torch, rows):
             p_next = swe_fused_step_ref(p_state, b, dt, cfg=sc.cfg)
             torch.cuda.synchronize()
             for name, k, p in zip("h hu hv".split(), k_state, p_next):
-                err = rel_err(k, p)
                 fused_err = max(fused_err, float((k - p).abs().max()))
-                print(f"[2] swe_fused_step {n}x{n} B=8 step {t} {name}: rel err {err:.3e}")
-                if not err < SWE_REL_TOL:
-                    fail(f"fused step {n}x{n} {name} rel err {err} >= {SWE_REL_TOL}")
+                out.append((f"swe_fused_step {n}x{n} B=8 step {t} {name}", "rel err",
+                            rel_err(k, p), SWE_REL_TOL))
             p_state = p_next
         if n == 288:
-            fused_case = (sc, state, b, dt)
+            case = (sc, state, b, dt)
+    return out, fused_err, case
+
+
+def phase_kernels(torch, rows):
+    from repro_torch.kernels.matern import ops as matern_ops
+    from repro_torch.kernels.matern.ref import matern52_ref
+    from repro_torch.kernels.swe_flux import ops as swe_ops
+    from repro_torch.kernels.swe_flux.ref import swe_fused_step_ref, swe_sweep_ref
+    from repro_torch.swe import TohokuScenario
+    from repro_torch.swe.solver import H_EPS, SWEState
+
+    gen = torch.Generator().manual_seed(0)
+    thetas = _swe_thetas(torch, gen)
+
+    # -- fused step: kernel vs plain, per step -------------------------------
+    checks, fused_err, fused_case = swe_step_checks(torch, thetas)
+    for label, measure, err, limit in checks:
+        print(f"[2] {label}: {measure} {err:.3e}")
+        if not err < limit:
+            fail(f"{label} {measure} {err} >= {limit}")
 
     # -- sweep: one sweep in x and in y at 288x288 ---------------------------
     sc, state, b, dt = fused_case
@@ -305,6 +345,29 @@ def phase_kernels(torch, rows):
         bufs.reverse()
 
     fused_ms = device_time_ms(torch, fused_once, 400)
+    # The same kernel over a whole fine solve from the source, as the main
+    # path runs it: the cost of a step follows the state (a zero dividend,
+    # on dry land or ahead of the wave, skips its division).
+    n_fine = sc.build_batch_forward().n_steps
+    start = SWEState(*(x.contiguous() for x in _swe_batch(torch, sc, thetas, 0)[0]))
+
+    def whole_solve():
+        for dst, src in zip(bufs[0], start):
+            dst.copy_(src)
+        for _ in range(n_fine):
+            fused_once()
+
+    whole_ms = device_time_ms(torch, whole_solve, 1, warmup=0) / n_fine
+    sc96 = TohokuScenario(nx=96, ny=96)
+    state96, b96, dt96 = _swe_batch(torch, sc96, thetas, 3)
+    bufs96 = [SWEState(*(x.contiguous() for x in state96)),
+              SWEState(*(torch.empty_like(x) for x in state96))]
+
+    def fused96_once():
+        swe_ops.swe_step_batched(bufs96[0], b96, dt96, cfg=sc96.cfg, out=bufs96[1])
+        bufs96.reverse()
+
+    fused96_ms = device_time_ms(torch, fused96_once, 400)
     fused_plain_ms = device_time_ms(
         torch, lambda: swe_fused_step_ref(state, b, dt, cfg=sc.cfg), 20
     )
@@ -323,7 +386,8 @@ def phase_kernels(torch, rows):
     matern_plain_ms = device_time_ms(torch, lambda: matern52_ref(a, bb, 1.3), 20)
     m_bound = bound_ms((8 * 2 + 512 * 2 + 8 * 512) * 4, 8 * 512 * (3 * 2 + 15))
     print("[2] device time per call (CUDA events): "
-          f"fused 288x288 B=8 {fused_ms:.4f} ms (plain {fused_plain_ms:.4f}); "
+          f"fused 288x288 B=8 {fused_ms:.4f} ms (plain {fused_plain_ms:.4f}), over a whole "
+          f"{n_fine}-step solve {whole_ms:.4f} ms a step, 96x96 B=8 {fused96_ms:.4f} ms; "
           f"sweep 288x288 {sweep_ms:.4f} ms (plain {sweep_plain_ms:.4f}); "
           f"matern (8,2)x(512,2) {matern_ms:.4f} ms (plain {matern_plain_ms:.4f}); "
           "library_ms: no single PyTorch call computes any of the three functions")
@@ -332,6 +396,8 @@ def phase_kernels(torch, rows):
             route="cuda", source="src/repro_torch/csrc/swe_flux.cu",
             replaces="src/repro/kernels/swe_flux/swe_flux.py:204",
             max_abs_err=fused_err, shape=f"({B}, {ny}, {nx}) fp32", ms=fused_ms, plain_ms=fused_plain_ms,
+            ms_whole_solve=whole_ms, whole_solve=f"{n_fine} steps from the source, ms a step",
+            ms_at_coarse_shape=fused96_ms, coarse_shape=f"({B}, 96, 96) fp32",
             bound_ms=f_bound[0], bound_by=f_bound[1], library_ms=None,
         ),
         "swe_sweep": dict(
@@ -383,6 +449,15 @@ def flash_checks(torch):
         record(f"fp32 {(b, h, hkv, s, d)} causal={causal} window={window}",
                fa.flash_attention(q, k, v, causal=causal, window=window),
                attention_ref(q, k, v, causal=causal, window=window), FLASH_FP32_ATOL)
+    # The same cases in bf16 reach the tensor-core kernel's window, ragged S,
+    # MQA and D = 32 / 128 paths; held against the plain blocked loop, which
+    # keeps the kernel's fp32 scores (attention_ref rounds them to bf16).
+    for (b, h, hkv, s, d, causal, window) in FLASH_CASES:
+        q, k, v = qkv(b, h, hkv, s, d, torch.bfloat16)
+        record(f"bf16 {(b, h, hkv, s, d)} causal={causal} window={window}",
+               fa.flash_attention(q, k, v, causal=causal, window=window),
+               attention_chunked(q, k, v, causal=causal, window=window), FLASH_BF16_ATOL,
+               FLASH_BF16_ROW_RTOL)
     q, k, v = qkv(1, 2, 2, 128, 64, torch.bfloat16)
     record("bf16 (1, 2, 2, 128, 64) vs fp32 plain on the same values",
            fa.flash_attention(q, k, v), attention_ref(q.float(), k.float(), v.float()),
@@ -426,6 +501,9 @@ def phase_flash(torch, rows):
     s4 = q4.shape[2]
 
     ms = device_time_ms(torch, lambda: fa.flash_attention(q, k, v), 5, warmup=1)
+    q32, k32, v32 = (x.float() for x in (q, k, v))
+    fp32_ms = device_time_ms(torch, lambda: fa.flash_attention(q32, k32, v32), 3, warmup=1)
+    del q32, k32, v32
     ms4 = device_time_ms(torch, lambda: fa.flash_attention(q4, k4, v4), 20)
     plain_ms4 = device_time_ms(torch, lambda: attention_ref(q4, k4, v4), 5, warmup=1)
     library_ms = device_time_ms(
@@ -437,7 +515,8 @@ def phase_flash(torch, rows):
     print(f"[2] flash_attention device time per call (CUDA events): (1, {h}, {hkv}, {s_long}, "
           f"{d}) bf16 causal {ms:.4f} ms (bound {f_bound[0]:.4f} ms by {f_bound[1]}; "
           f"scaled_dot_product_attention {library_ms:.4f} ms); at S={s4} kernel "
-          f"{ms4:.4f} ms, plain attention_ref {plain_ms4:.4f} ms")
+          f"{ms4:.4f} ms, plain attention_ref {plain_ms4:.4f} ms; the fp32 route (CUDA cores) "
+          f"at S={s_long} {fp32_ms:.4f} ms")
     rows["flash_attention"] = dict(
         route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/flash_attention.py:113",
@@ -446,45 +525,54 @@ def phase_flash(torch, rows):
         shape=f"(1, {h}, {hkv}, {s_long}, {d}) bf16 causal", ms=ms,
         plain_ms=plain_ms4, plain_shape=f"(1, {h}, {hkv}, {s4}, {d}) bf16 causal, attention_ref",
         ms_at_plain_shape=ms4, bound_ms=f_bound[0], bound_by=f_bound[1], library_ms=library_ms,
+        kernel="flash_fwd_wgmma_kernel: bf16, tensor cores (wgmma, TMA)",
+        fp32_kernel="flash_fwd_fp32_kernel: fp32, CUDA cores, same source",
+        fp32_ms=fp32_ms, fp32_shape=f"(1, {h}, {hkv}, {s_long}, {d}) fp32 causal",
     )
 
 
 def phase_planted_faults(torch) -> None:
-    """Build each of ``PLANTED_FAULTS`` from an edited copy of the flash
-    kernel's source under build/planted/ and run the flash checks on it:
+    """Build each of ``PLANTED_FAULTS`` from an edited copy of its source
+    under build/planted/ and run the checks of that source's kernels on it:
     each fault must fail one, or the checks are too weak to trust."""
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels import build
 
-    src = (build.CSRC / "flash_attention.cu").read_text()
+    checks_of = {
+        "flash_attention.cu": lambda: flash_checks(torch)[0],
+        "swe_flux.cu": lambda: swe_step_checks(
+            torch, _swe_thetas(torch, torch.Generator().manual_seed(0)))[0],
+    }
     libs = {}
-    for name, (old, new) in PLANTED_FAULTS.items():
+    for name, (source, old, new) in PLANTED_FAULTS.items():
+        src = (build.CSRC / source).read_text()
         if src.count(old) != 1:
-            fail(f"planted fault {name}: its edit does not match the source exactly once")
+            fail(f"planted fault {name}: its edit does not match {source} exactly once")
         d = REPO / "build" / "planted" / name
         d.mkdir(parents=True, exist_ok=True)
-        (d / "flash_attention.cu").write_text(src.replace(old, new))
-        libs[name] = build.KernelLibrary(d / "kernels", csrc=d)
+        (d / source).write_text(src.replace(old, new))
+        libs[name] = (source, build.KernelLibrary(d / "kernels", csrc=d))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
-        list(pool.map(lambda lib: lib.build(["flash_attention"]), libs.values()))
-    print(f"[2] built {len(libs)} planted faults of flash_attention.cu in "
-          f"{time.perf_counter() - t0:.1f}s")
+        list(pool.map(lambda sl: sl[1].build([Path(sl[0]).stem]), libs.values()))
+    print(f"[2] built {len(libs)} planted faults in {time.perf_counter() - t0:.1f}s")
     committed = build.LIBRARY
-    for name, lib in libs.items():
+    for name, (source, lib) in libs.items():
         build.LIBRARY = lib
-        checks, _, _ = flash_checks(torch)
-        build.LIBRARY = committed
+        try:
+            checks = checks_of[source]()
+        finally:
+            build.LIBRARY = committed
         failed = [c for c in checks if not c[2] < c[3]]
         for label, measure, err, limit in checks:
             print(f"[2] planted fault {name}: {label}: {measure} {err:.3e} (limit {limit:.3e})"
                   f"{'' if err < limit else ' REJECTED'}")
         n_abs = sum(1 for c in failed if c[1] == "max abs err")
-        print(f"[2] planted fault {name}: rejected by {len(failed)} of {len(checks)} flash "
-              f"checks ({n_abs} absolute, {len(failed) - n_abs} per row)")
+        print(f"[2] planted fault {name} ({source}): rejected by {len(failed)} of {len(checks)} "
+              f"checks ({n_abs} absolute, {len(failed) - n_abs} other)")
         if not failed:
-            fail(f"planted fault {name} passes every flash check")
+            fail(f"planted fault {name} passes every check of {source}")
 
 
 # ---------------------------------------------------------------------------
@@ -621,6 +709,7 @@ def _prefill_len() -> int:
 
 def phase_lm_prefill(torch, cfg, params, rows):
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.models import build_model
     from repro_torch.models import chunked_attention
 
@@ -650,13 +739,18 @@ def phase_lm_prefill(torch, cfg, params, rows):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         chunked_attention.attention_chunked = plain
-        launches = build.counter("flash_attention").value
+        launches = fa.LAUNCHES["tensor_core"].value
+        fp32_launches = fa.LAUNCHES["cuda_core"].value
         peak = torch.cuda.max_memory_allocated() / 2**30
         print(f"[5] prefill attn_impl={label}: {wall:.3f} s wall, peak memory {peak:.2f} GiB, "
-              f"flash_attention launches {launches}")
+              f"flash_attention launches: tensor-core route {launches}, fp32 route "
+              f"{fp32_launches}")
+        if fp32_launches:
+            fail(f"the bf16 prefill launched the fp32 flash kernel {fp32_launches} times")
         if impl == "kernel":
             if launches != cfg.n_layers:
-                fail(f"prefill launched flash_attention {launches} times, want {cfg.n_layers}")
+                fail(f"prefill launched the tensor-core flash kernel {launches} times, "
+                     f"want {cfg.n_layers}")
             rows["flash_attention"]["launches"] = launches
         elif launches != 0:
             fail(f"the chunked prefill launched flash_attention {launches} times")

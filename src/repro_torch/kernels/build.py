@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -115,6 +116,25 @@ class KernelLibrary:
             os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
         if errors:
             raise RuntimeError("\n".join(errors))
+
+    def sass_counts(self, name: str) -> Dict[str, int]:
+        """SASS instructions (NOPs left out) of each kernel in the built
+        library ``name``, by mangled function name, from ``cuobjdump -sass``."""
+        tool = Path(self.nvcc()).with_name("cuobjdump")
+        out = subprocess.run(
+            [str(tool), "-sass", str(self.target(name))],
+            capture_output=True, text=True, check=True,
+        ).stdout
+        counts: Dict[str, int] = {}
+        fn = None
+        for line in out.splitlines():
+            head = re.match(r"\s*Function : (\S+)", line)
+            if head:
+                fn = head.group(1)
+                counts[fn] = 0
+            elif fn and re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?!NOP\b)\S", line):
+                counts[fn] += 1
+        return counts
 
     def load(self, name: str, signatures: Dict[str, Signature]) -> ctypes.CDLL:
         """The loaded library ``name``, built first if needed, with the C

@@ -131,9 +131,10 @@ def card():
 def test_flash_kernel_matches_plain_on_card(card, dtype, b, h, hkv, s, d, causal, window):
     q, k, v = (torch.from_numpy(x).to(card, getattr(torch, dtype))
                for x in _inputs(b, h, hkv, s, d, seed=s + d))
-    before = ops.LAUNCHES.value
+    counter = ops.LAUNCHES[ops.route(q.dtype, d)]
+    before = counter.value
     got = ops.flash_attention(q, k, v, causal=causal, window=window)
-    assert ops.LAUNCHES.value == before + 1
+    assert counter.value == before + 1
     # The plain blocked loop has the kernel's arithmetic (fp32 scores, p
     # rounded to the input type); the fp32 bound is the reference's.
     want = attention_chunked(q, k, v, causal=causal, window=window)
