@@ -17,9 +17,10 @@ Phases (any failure exits non-zero; there is no CPU path):
    its bf16 case, and qwen2-0.5b's heads at 4096 tokens against the
    materialising plain version and the plain blocked loop, and at 32768
    tokens in bf16 and fp32 against the blocked loop, the bf16 cases and the
-   qwen2 shapes also per row relative to the row's size), check
-   lake-at-rest through the kernels, and time kernel and plain version with
-   CUDA events; then build each of ``PLANTED_FAULTS`` (an edit of a kernel
+   qwen2 shapes also per row relative to the row's size), hold each fused
+   SWE step bit for bit against the two sweep kernels and the Euler update,
+   check lake-at-rest through the kernels, and time kernel and plain
+   version with CUDA events; then build each of ``PLANTED_FAULTS`` (an edit of a kernel
    source) and fail unless the checks of that source reject every one;
 3. check batch invariance: B = 1 rows against B = 8 rows, bit for bit, for
    the coarse and fine batched forwards and for ``GaussianProcess.batch_call``;
@@ -120,12 +121,13 @@ PLANTED_FAULTS = {
         "for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];",
         "for (int i = 0; i < D / 2; ++i) acc[i] *= (it == 1 ? 1.f : alpha[(i >> 1) & 1]);",
     ),
-    # The fused SWE step's halo: the strip's last row reads its own row
-    # instead of the halo row past it, so its north face sees no neighbour.
+    # The fused SWE step's halo: the halo row past the tile's last row is
+    # loaded from the last row itself, so the tile's last y faces see no
+    # neighbour.
     "swe_halo_row_own_row": (
         "swe_flux.cu",
-        "k = at(i + 2);",
-        "k = at(i + 2 - (r == kStripRows - 2));",
+        "const int i = min(max(i0 + r - 1, 0), ny - 1);",
+        "const int i = min(max(i0 + r - 1 - (r == TY + 1), 0), ny - 1);",
     ),
 }
 FLASH_CASES = [
@@ -214,8 +216,7 @@ def phase_build():
         try:
             counts = LIBRARY.sass_counts(name)
         except (OSError, subprocess.CalledProcessError) as e:
-            print(f"[1] SASS instructions ({name}.cu): not measured ({e})")
-            continue
+            fail(f"cuobjdump -sass of {name}.cu failed: {e}")
         print(f"[1] SASS instructions ({name}.cu, cuobjdump -sass, NOPs left out): "
               + "; ".join(f"{fn} {n}" for fn, n in sorted(counts.items())))
 
@@ -247,7 +248,13 @@ def swe_step_checks(torch, thetas):
     against the plain step at 288x288 and 96x96 with B = 8, one step at a
     time from the plain trajectory's state (errors do not compound), over 4
     steps, as ``(label, measure, error, limit)``; also the largest absolute
-    difference and the 288x288 case ``(scenario, state, b, dt)``."""
+    difference and the 288x288 case ``(scenario, state, b, dt)``.
+
+    Each step is also held bit for bit against the two sweep kernels and
+    the Euler update in PyTorch (``swe_ops.swe_step``): the same IEEE
+    operations in the same order, one thread a cell computing every face
+    of its own, so a face computed once must have the bits of a face
+    computed twice.  The measure is the count of unequal values, limit 1."""
     from repro_torch.kernels.swe_flux import ops as swe_ops
     from repro_torch.kernels.swe_flux.ref import swe_fused_step_ref
     from repro_torch.swe import TohokuScenario
@@ -261,10 +268,14 @@ def swe_step_checks(torch, thetas):
             k_state = swe_ops.swe_step_batched(p_state, b, dt, cfg=sc.cfg)
             p_next = swe_fused_step_ref(p_state, b, dt, cfg=sc.cfg)
             torch.cuda.synchronize()
-            for name, k, p in zip("h hu hv".split(), k_state, p_next):
+            s_state = swe_ops.swe_step(p_state, b, dt, cfg=sc.cfg)
+            torch.cuda.synchronize()
+            for name, k, p, s in zip("h hu hv".split(), k_state, p_next, s_state):
                 fused_err = max(fused_err, float((k - p).abs().max()))
                 out.append((f"swe_fused_step {n}x{n} B=8 step {t} {name}", "rel err",
                             rel_err(k, p), SWE_REL_TOL))
+                out.append((f"swe_fused_step {n}x{n} B=8 step {t} {name} vs sweeps + Euler",
+                            "unequal values", int((k != s).sum()), 1))
             p_state = p_next
         if n == 288:
             case = (sc, state, b, dt)

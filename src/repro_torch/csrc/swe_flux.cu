@@ -13,28 +13,49 @@
 // only, and the pressure + bed source assembled per cell in deviation form
 // (small difference x large sum), which keeps lake-at-rest exact in fp32.
 //
-// What bounds it on the H100: memory.  Per cell and step the fused kernel
-// reads h, hu, hv (and b) and writes h, hu, hv: 28 bytes per cell of
-// compulsory traffic for ~150 flops, far below the card's ~20 flop/byte
-// balance point.  At 288x288 and B = 8 one step moves ~16.3 MB, ~4.9 us at
-// 3.35 TB/s; at 96x96 (~1.8 MB) the step is bound by the launch itself.
+// What bounds the fused step on the H100: instruction issue, not bytes.
+// Its compulsory traffic is 28 bytes per cell (read h, hu, hv, b; write h,
+// hu, hv): at 288x288 and B = 8 one step moves ~16.3 MB, ~4.9 us at
+// 3.35 TB/s.  But the arithmetic is IEEE throughout (--fmad=false, below),
+// every sqrt and division is a multi-instruction sequence, and a cell that
+// computes its own four faces computes every face twice and its
+// neighbours' velocities (desing: one sqrt, one division each) eight times.
 //
-// What the design does about it: one thread per interior cell on a 2-D tile
-// grid with blockIdx.z = batch member, so every plane is read in coalesced
-// rows and written once.  Edge ("outflow") ghost cells are clamped-index
-// loads instead of padded copies, which removes the padding pass of the
-// TPU version; the four neighbour loads of a cell hit L1/L2, not DRAM.  The
-// x and y fluxes, the Euler update, the positivity clamp and the wet mask
-// stay in registers, and the probe gauge write eta = h + b of the step goes
+// What the design does about it: a block owns a 32 x TY tile of one batch
+// member, one cell a thread (lane = column, warp = row), and works in three
+// phases behind __syncthreads, through shared memory:
+//   1. it loads the (TY+2) x (32+2) halo tile of h, hu, hv and b, and
+//      computes each cell's velocities desing(h, hu), desing(h, hv) once
+//      (the two share their denominator's sqrt);
+//   2. it computes each of the tile's TY x 33 x faces and (TY+1) x 32 y
+//      faces once (f0, f1, f2, hL, hR): each thread the x face west of its
+//      cell and the y face south of it, two warps the faces on the tile's
+//      east and north edges;
+//   3. each cell takes its two tendencies from its four faces, then the
+//      Euler update, the positivity clamp and the wet mask.
+// Edge ("outflow") ghost cells are clamped indices, no padded copies.  A
+// zero dividend is returned as it is (+-0 / b = +-0 for b > 0), which skips
+// the division's slow path; zeros are most dividends on dry land and in the
+// ocean before the wave arrives.  The probe gauge eta = h + b of the step
+// is written by the block whose tile holds the probe, from shared memory,
 // straight into the (B, T, P) series buffer, so a time step is one launch.
+// Every operation and its order are those of the one-thread-per-cell form
+// (the sweep's helpers below), so the step has its bits; a face computed
+// once has the bits it had when two cells computed it.  Two tile shapes:
+// 32 x 8 where the blocks fill every SM four times over (the fine level,
+// 288 x 288 x 8), 32 x 4 below that (the coarse level, 96 x 96 x 8, is
+// 73,728 cells: larger tiles would leave SMs idle).  What still bounds the
+// step is instruction issue: every sqrt and division is an estimate, its
+// refinement and a range check branching to a slow-path subroutine, about
+// a third of the kernel's SASS, and the branches cut the code into short
+// blocks that the scheduler cannot interleave.
 // The TPU design of one program per padded plane (and its 8 MiB VMEM limit
 // and strip fallback) has no counterpart: the kernel works at any grid size.
 //
 // Built with --fmad=false (kernels/build.py): at 7 km depth one ulp of h is
 // 0.5 mm of sea surface, and an FMA that rounds h differently from the plain
 // version moves the momentum by ~1e-4 of its size within a step.  Without
-// contraction every operation rounds as the plain version's does; the
-// flops are free here, since the kernel is bound by bytes.
+// contraction every operation rounds as the plain version's does.
 #include <cuda_runtime.h>
 
 namespace {
@@ -52,6 +73,10 @@ struct Tendency {
   float dh, dn, dt;  // mass, normal- and tangential-momentum tendencies
 };
 
+// a / b for b > 0, with a zero dividend returned as it is: +-0 / b is +-0,
+// and the IEEE division sends a zero dividend down its slow path.
+__device__ __forceinline__ float div_nz(float a, float b) { return a == 0.f ? a : a / b; }
+
 __device__ __forceinline__ float desing(float h, float hq) {
   // u = hq/h without dividing by ~0 in dry cells (Kurganov-Petrova).
   float h2 = h * h;
@@ -60,16 +85,15 @@ __device__ __forceinline__ float desing(float h, float hq) {
 }
 
 // Rusanov flux through the face between cell l and cell r along the normal
-// axis.  qn is the momentum along the normal, qt the one across it.
-__device__ __forceinline__ Face face_flux(float hl, float qnl, float qtl, float bl,
-                                          float hr, float qnr, float qtr, float br,
-                                          float g) {
+// axis, from each side's depth, velocities along the normal (u) and across
+// it (v), and bed.
+__device__ __forceinline__ Face face_flux_uv(float hl, float uL, float vL, float bl,
+                                             float hr, float uR, float vR, float br,
+                                             float g) {
   float bstar = fmaxf(bl, br);
   Face f;
   f.hL = fmaxf(hl + bl - bstar, 0.f);
   f.hR = fmaxf(hr + br - bstar, 0.f);
-  float uL = desing(hl, qnl), vL = desing(hl, qtl);
-  float uR = desing(hr, qnr), vR = desing(hr, qtr);
   float huL = f.hL * uL, hvL = f.hL * vL;
   float huR = f.hR * uR, hvR = f.hR * vR;
   float cL = fabsf(uL) + (f.hL > 0.f ? sqrtf(g * f.hL) : 0.f);
@@ -81,15 +105,27 @@ __device__ __forceinline__ Face face_flux(float hl, float qnl, float qtl, float 
   return f;
 }
 
+// The same flux from each side's momenta: qn along the normal, qt across it.
+__device__ __forceinline__ Face face_flux(float hl, float qnl, float qtl, float bl,
+                                          float hr, float qnr, float qtr, float br,
+                                          float g) {
+  return face_flux_uv(hl, desing(hl, qnl), desing(hl, qtl), bl, hr, desing(hr, qnr),
+                      desing(hr, qtr), br, g);
+}
+
 // Flux difference of a cell's two faces plus the deviation-form pressure.
-__device__ __forceinline__ Tendency tendency(const Face& l, const Face& r,
-                                             float g, float d) {
+// kZeroSkip: divide with div_nz (the fused step) instead of a / d (the
+// sweep); both give the same bits.
+template <bool kZeroSkip>
+__device__ __forceinline__ Tendency tendency(const Face& l, const Face& r, float g,
+                                             float d) {
+  auto div = [d](float a) { return kZeroSkip ? div_nz(a, d) : a / d; };
   Tendency t;
   float press = 0.25f * g *
                 ((r.hR - r.hL) * (r.hR + r.hL) + (l.hR - l.hL) * (l.hR + l.hL));
-  t.dh = (r.f0 - l.f0) / d;
-  t.dn = ((r.f1 - l.f1) + press) / d;
-  t.dt = (r.f2 - l.f2) / d;
+  t.dh = div(r.f0 - l.f0);
+  t.dn = div((r.f1 - l.f1) + press);
+  t.dt = div(r.f2 - l.f2);
   return t;
 }
 
@@ -113,46 +149,137 @@ __device__ __forceinline__ Face y_face(const Cell& l, const Cell& r, float g) {
   return face_flux(l.h, l.hv, l.hu, l.b, r.h, r.hv, r.hu, r.b, g);
 }
 
-__global__ void swe_fused_step_kernel(
+// ---------------------------------------------------------------------------
+// The fused step: a tile of kTileW x TY cells a block, one cell a thread
+// (lane = column, warp = row).
+// ---------------------------------------------------------------------------
+constexpr int kTileW = 32;
+
+template <int TY>
+struct StepTile {
+  static constexpr int kW = kTileW + 2, kH = TY + 2;  // halo tile
+  float4 cell[kH][kW];  // h, desing(h, hu), desing(h, hv), b
+  float hu[kH][kW], hv[kH][kW];
+  // x face [r][c] lies west of tile cell (r, c), y face [r][c] south of it;
+  // f0, f1, f2, hL in one float4, hR beside it.
+  float4 xf[TY][kTileW + 1];
+  float xhr[TY][kTileW + 1];
+  float4 yf[TY + 1][kTileW];
+  float yhr[TY + 1][kTileW];
+};
+
+// Halo cell (r, c) of the tile at (i0, j0): load it and compute its
+// velocities desing(h, hu) and desing(h, hv), which share their sqrt.
+// Clamped rows and columns = zero-gradient (outflow) ghost cells.
+template <int TY>
+__device__ __forceinline__ void load_halo_cell(StepTile<TY>& s, int r, int c,
+                                               const float* __restrict__ h,
+                                               const float* __restrict__ hu,
+                                               const float* __restrict__ hv,
+                                               const float* __restrict__ b, size_t off,
+                                               int i0, int j0, int ny, int nx) {
+  const int i = min(max(i0 + r - 1, 0), ny - 1);
+  const int j = min(max(j0 + c - 1, 0), nx - 1);
+  const size_t kb = (size_t)i * nx + j, kc = off + kb;
+  const float ch = __ldg(h + kc), chu = __ldg(hu + kc), chv = __ldg(hv + kc);
+  const float h2 = ch * ch;
+  const float h4 = h2 * h2;
+  const float nu = kSqrt2 * ch * chu, nv = kSqrt2 * ch * chv;
+  float u = nu, v = nv;
+  if (nu != 0.f || nv != 0.f) {
+    const float den = sqrtf(h4 + fmaxf(h4, kEps4));
+    u = div_nz(nu, den);
+    v = div_nz(nv, den);
+  }
+  s.cell[r][c] = make_float4(ch, u, v, __ldg(b + kb));
+  s.hu[r][c] = chu;
+  s.hv[r][c] = chv;
+}
+
+// The face between halo cells l and q: an x face takes (u, v) as (normal,
+// tangential), a y face (v, u).
+template <bool kX>
+__device__ __forceinline__ void store_face(float4* out, float* out_hr, const float4& l,
+                                           const float4& q, float g) {
+  const Face f = kX ? face_flux_uv(l.x, l.y, l.z, l.w, q.x, q.y, q.z, q.w, g)
+                    : face_flux_uv(l.x, l.z, l.y, l.w, q.x, q.z, q.y, q.w, g);
+  *out = make_float4(f.f0, f.f1, f.f2, f.hL);
+  *out_hr = f.hR;
+}
+
+__device__ __forceinline__ Face face_at(const float4& f, float hR) {
+  return Face{f.x, f.y, f.z, f.w, hR};
+}
+
+// A block of 32 x TY threads; 2048 threads (64 warps) an SM, so at most 32
+// registers a thread.
+template <int TY>
+__global__ void __launch_bounds__(kTileW * TY, 2048 / (kTileW * TY)) swe_fused_step_kernel(
     const float* __restrict__ h, const float* __restrict__ hu,
     const float* __restrict__ hv, const float* __restrict__ b,
     float* __restrict__ h_out, float* __restrict__ hu_out,
     float* __restrict__ hv_out, float* __restrict__ series,
     const int* __restrict__ pi, const int* __restrict__ pj, int n_probes,
     int t, int n_steps, int ny, int nx, float g, float dx, float dy, float dt) {
-  int j = blockIdx.x * blockDim.x + threadIdx.x;
-  int i = blockIdx.y * blockDim.y + threadIdx.y;
-  if (i >= ny || j >= nx) return;
-  int n = blockIdx.z;
-  size_t off = (size_t)n * ny * nx;
-  const float* H = h + off;
-  const float* HU = hu + off;
-  const float* HV = hv + off;
-  // Clamped neighbours = zero-gradient (outflow) ghost cells.
-  int jw = max(j - 1, 0), je = min(j + 1, nx - 1);
-  int is = max(i - 1, 0), in = min(i + 1, ny - 1);
-  size_t kc = (size_t)i * nx + j;
-  Cell c = load(H, HU, HV, b, kc, kc);
-  size_t kw = (size_t)i * nx + jw, ke = (size_t)i * nx + je;
-  size_t ks = (size_t)is * nx + j, kn = (size_t)in * nx + j;
-  Cell w = load(H, HU, HV, b, kw, kw);
-  Cell e = load(H, HU, HV, b, ke, ke);
-  Cell s = load(H, HU, HV, b, ks, ks);
-  Cell nn = load(H, HU, HV, b, kn, kn);
+  static_assert(TY >= 3 && 2 * (TY + 2) <= kTileW,
+                "warps 0-2 load the halo's extra rows, warp 2 its edge columns");
+  __shared__ StepTile<TY> s;
+  const int c = threadIdx.x, r = threadIdx.y;  // this thread's cell
+  const int n = blockIdx.z;
+  const int i0 = blockIdx.y * TY, j0 = blockIdx.x * kTileW;
+  const size_t off = (size_t)n * ny * nx;
 
-  Tendency tx = tendency(x_face(w, c, g), x_face(c, e, g), g, dx);
-  Tendency ty = tendency(y_face(s, c, g), y_face(c, nn, g), g, dy);
+  // 1. The halo tile and its velocities: each thread its own halo column
+  //    c + 1 in row r; warps 0 and 1 also rows TY and TY + 1, warp 2 the
+  //    two edge columns.
+  load_halo_cell(s, r, c + 1, h, hu, hv, b, off, i0, j0, ny, nx);
+  if (r < 2) load_halo_cell(s, TY + r, c + 1, h, hu, hv, b, off, i0, j0, ny, nx);
+  if (r == 2 && c < 2 * (TY + 2))
+    load_halo_cell(s, c >> 1, (c & 1) * (kTileW + 1), h, hu, hv, b, off, i0, j0, ny, nx);
+  __syncthreads();
+
+  // 2. Every face of the tile once: each thread the x face west of its cell
+  //    and the y face south of it; warp TY - 1 also the y faces north of the
+  //    tile, warp TY - 2 the x faces east of it.
+  store_face<true>(&s.xf[r][c], &s.xhr[r][c], s.cell[r + 1][c], s.cell[r + 1][c + 1], g);
+  store_face<false>(&s.yf[r][c], &s.yhr[r][c], s.cell[r][c + 1], s.cell[r + 1][c + 1], g);
+  if (r == TY - 1)
+    store_face<false>(&s.yf[TY][c], &s.yhr[TY][c], s.cell[TY][c + 1], s.cell[TY + 1][c + 1], g);
+  if (r == TY - 2 && c < TY)
+    store_face<true>(&s.xf[c][kTileW], &s.xhr[c][kTileW], s.cell[c + 1][kTileW],
+                     s.cell[c + 1][kTileW + 1], g);
+  __syncthreads();
+
+  // 3. The cell from its four faces.
+  const Tendency tX = tendency<true>(face_at(s.xf[r][c], s.xhr[r][c]),
+                                     face_at(s.xf[r][c + 1], s.xhr[r][c + 1]), g, dx);
+  const Tendency tY = tendency<true>(face_at(s.yf[r][c], s.yhr[r][c]),
+                                     face_at(s.yf[r + 1][c], s.yhr[r + 1][c]), g, dy);
+  const float ch = s.cell[r + 1][c + 1].x;
   // x: (dh, dhu, dhv) = (dh, dn, dt);  y: (dh, dhv, dhu) = (dh, dn, dt).
-  float h_new = fmaxf(c.h - dt * (tx.dh + ty.dh), 0.f);
-  float hu_new = c.hu - dt * (tx.dn + ty.dt);
-  float hv_new = c.hv - dt * (tx.dt + ty.dn);
-  bool wet = h_new > kHEps;
-  h_out[off + kc] = h_new;
-  hu_out[off + kc] = wet ? hu_new : 0.f;
-  hv_out[off + kc] = wet ? hv_new : 0.f;
-  for (int p = 0; p < n_probes; ++p) {
-    if (pi[p] == i && pj[p] == j) {
-      series[((size_t)n * n_steps + t) * n_probes + p] = h_new + c.b;
+  const float h_new = fmaxf(ch - dt * (tX.dh + tY.dh), 0.f);
+  const float hu_new = s.hu[r + 1][c + 1] - dt * (tX.dn + tY.dt);
+  const float hv_new = s.hv[r + 1][c + 1] - dt * (tX.dt + tY.dn);
+  const int i = i0 + r, j = j0 + c;
+  if (i < ny && j < nx) {
+    const size_t kc = off + (size_t)i * nx + j;
+    const bool wet = h_new > kHEps;
+    h_out[kc] = h_new;
+    hu_out[kc] = wet ? hu_new : 0.f;
+    hv_out[kc] = wet ? hv_new : 0.f;
+  }
+
+  // Probe gauge: the block's first threads each take a probe and write
+  // eta = h + b of the step if the probe lies in the block's tile.
+  if (n_probes > 0) {
+    s.cell[r + 1][c + 1].x = h_new;
+    __syncthreads();
+    for (int p = r * kTileW + c; p < n_probes; p += kTileW * TY) {
+      const int pr = pi[p] - i0, pc = pj[p] - j0;
+      if (pr >= 0 && pr < TY && pc >= 0 && pc < kTileW && pi[p] < ny && pj[p] < nx) {
+        const float4 cp = s.cell[pr + 1][pc + 1];
+        series[((size_t)n * n_steps + t) * n_probes + p] = cp.x + cp.w;
+      }
     }
   }
 }
@@ -182,12 +309,12 @@ __global__ void swe_sweep_kernel(
   Cell l = load(H, HU, HV, b, kl, kl);
   Cell r = load(H, HU, HV, b, kr, kr);
   if (axis == 0) {
-    Tendency t = tendency(x_face(l, c, g), x_face(c, r, g), g, d);
+    Tendency t = tendency<false>(x_face(l, c, g), x_face(c, r, g), g, d);
     dh[off + kc] = t.dh;
     dhu[off + kc] = t.dn;
     dhv[off + kc] = t.dt;
   } else {
-    Tendency t = tendency(y_face(l, c, g), y_face(c, r, g), g, d);
+    Tendency t = tendency<false>(y_face(l, c, g), y_face(c, r, g), g, d);
     dh[off + kc] = t.dh;
     dhu[off + kc] = t.dt;
     dhv[off + kc] = t.dn;
@@ -197,8 +324,33 @@ __global__ void swe_sweep_kernel(
 constexpr int kTileX = 32;
 constexpr int kTileY = 8;
 
-dim3 tile_grid(int B, int ny, int nx) {
-  return dim3((nx + kTileX - 1) / kTileX, (ny + kTileY - 1) / kTileY, B);
+dim3 tile_grid(int B, int ny, int nx, int tx, int ty) {
+  return dim3((nx + tx - 1) / tx, (ny + ty - 1) / ty, B);
+}
+
+// The fused step's tile heights: 32 x 8 at the fine level, 32 x 4 where the
+// grid is too small to fill the card with 32 x 8 tiles (see the top).
+constexpr int kFineTY = 8, kCoarseTY = 4;
+
+template <int TY>
+void launch_fused(int B, int ny, int nx, cudaStream_t stream, const float* h,
+                  const float* hu, const float* hv, const float* b, float* h_out,
+                  float* hu_out, float* hv_out, float* series, const int* pi,
+                  const int* pj, int n_probes, int t, int n_steps, float g, float dx,
+                  float dy, float dt) {
+  swe_fused_step_kernel<TY><<<tile_grid(B, ny, nx, kTileW, TY), dim3(kTileW, TY), 0, stream>>>(
+      h, hu, hv, b, h_out, hu_out, hv_out, series, pi, pj, n_probes, t, n_steps, ny, nx, g,
+      dx, dy, dt);
+}
+
+int sm_count() {
+  static const int n = [] {
+    int dev = 0, count = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+    return count > 0 ? count : 1;
+  }();
+  return n;
 }
 
 }  // namespace
@@ -213,10 +365,13 @@ int swe_fused_step(const float* h, const float* hu, const float* hv,
                    float* series, const int* pi, const int* pj, int n_probes,
                    int t, int n_steps, int B, int ny, int nx, float g, float dx,
                    float dy, float dt, void* stream) {
-  swe_fused_step_kernel<<<tile_grid(B, ny, nx), dim3(kTileX, kTileY), 0,
-                          (cudaStream_t)stream>>>(
-      h, hu, hv, b, h_out, hu_out, hv_out, series, pi, pj, n_probes, t,
-      n_steps, ny, nx, g, dx, dy, dt);
+  // The fine tiles where their blocks fill every SM four times over.
+  const dim3 fine = tile_grid(B, ny, nx, kTileW, kFineTY);
+  auto launch = (long)fine.x * fine.y * fine.z >= 4L * sm_count()
+                    ? launch_fused<kFineTY>
+                    : launch_fused<kCoarseTY>;
+  launch(B, ny, nx, (cudaStream_t)stream, h, hu, hv, b, h_out, hu_out, hv_out, series,
+         pi, pj, n_probes, t, n_steps, g, dx, dy, dt);
   return (int)cudaGetLastError();
 }
 
@@ -225,7 +380,8 @@ int swe_fused_step(const float* h, const float* hu, const float* hv,
 int swe_sweep(const float* h, const float* hu, const float* hv, const float* b,
               float* dh, float* dhu, float* dhv, int B, int ny, int nx,
               int axis, float g, float d, void* stream) {
-  swe_sweep_kernel<<<tile_grid(B, ny, nx), dim3(kTileX, kTileY), 0,
+  swe_sweep_kernel<<<tile_grid(B, ny, nx, kTileX, kTileY),
+                     dim3(kTileX, kTileY), 0,
                      (cudaStream_t)stream>>>(h, hu, hv, b, dh, dhu, dhv, ny, nx,
                                               axis, g, d);
   return (int)cudaGetLastError();

@@ -182,8 +182,9 @@ def solve_batched(
     """``n_steps`` fused steps from ``state``: ``((B, T, P) series, final)``.
 
     Two state buffers alternate as input and output (the step kernel reads
-    its neighbours, so it cannot update in place); the probe gauge of each
-    step is written by the kernel itself, so a step is one launch.
+    its neighbours, so it cannot update in place): ``state``'s own tensors,
+    when contiguous, are one of them and are overwritten.  The probe gauge
+    of each step is written by the kernel itself, so a step is one launch.
     """
     B = state.h.shape[0]
     probes = torch.stack([pi, pj]).to(torch.int32).contiguous()

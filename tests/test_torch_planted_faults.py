@@ -52,10 +52,10 @@ def test_flash_faults_lie_in_the_tensor_core_kernel(name):
 
 
 def test_swe_fault_lies_in_the_fused_step_row_loop():
-    """The SWE fault edits the fused step's loads of the rows it walks."""
+    """The SWE fault edits the row index of the fused step's halo-tile loads."""
     source, old, _ = FAULTS["swe_halo_row_own_row"]
-    kernel = _span(_source(source), "swe_fused_step_kernel(", "__global__ void swe_sweep_kernel(")
-    assert old in _span(kernel, "for (int r = 0; r < kStripRows; ++r) {", "// Probe gauge")
+    loads = _span(_source(source), "void load_halo_cell(", "s.cell[r][c] = ")
+    assert old in loads
 
 
 def test_every_kernel_source_has_a_fault():
