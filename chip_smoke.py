@@ -11,8 +11,11 @@ Phases (any failure exits non-zero; there is no CPU path):
    instruction count;
 2. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes (fused SWE step at 288x288 and 96x96 with B = 8, the
-   directional sweep at 288x288 in x and y, Matérn at (8, 2) x (512, 2) and
-   (130, 2+3) x (70, 5); flash attention over the reference's six test
+   directional sweep at 288x288 in x and y, the Matérn matrix at (8, 2) x
+   (512, 2) and (130, 5) x (70, 5), the Matérn posterior mean at (8, 2) x
+   (512, 2), (1, 2) x (512, 2) and (5, 3) x (300, 3) with p = 4, also bit
+   for bit against the matrix kernel and the PyTorch contraction); flash
+   attention over the reference's six test
    cases in fp32 (the CUDA-core route) and in bf16 (the tensor-core route),
    its bf16 case, and qwen2-0.5b's heads at 4096 tokens against the
    materialising plain version and the plain blocked loop, and at 32768
@@ -20,15 +23,19 @@ Phases (any failure exits non-zero; there is no CPU path):
    qwen2 shapes also per row relative to the row's size), hold each fused
    SWE step bit for bit against the two sweep kernels and the Euler update,
    check lake-at-rest through the kernels, and time kernel and plain
-   version with CUDA events; then build each of ``PLANTED_FAULTS`` (an edit of a kernel
-   source) and fail unless the checks of that source reject every one;
+   version with CUDA events, beside the launch floor (a 1-element
+   ``zero_()``), and a level-0 ``batch_call`` at B = 8 by the host's clock
+   before and after the posterior-mean kernel; then build each of
+   ``PLANTED_FAULTS`` (an edit of a kernel source) and fail unless the
+   checks of that source reject every one;
 3. check batch invariance: B = 1 rows against B = 8 rows, bit for bit, for
-   the coarse and fine batched forwards and for ``GaussianProcess.batch_call``;
+   the coarse and fine batched forwards and for ``GaussianProcess.batch_call``,
+   and that one ``batch_call`` launches one CUDA kernel (``torch.profiler``);
 4. drive the MLDA main path, ``repro_torch.launch.tsunami.run``, at the
    ``paper`` preset's widths (96x96 and 288x288 grids, 512 LHS points, 200
    Adam steps, 5 chains through the balancer), with the launch counters set
-   to 0 just before; every kernel of the path must launch; check the outputs
-   against the plain path;
+   to 0 just before; every kernel of the path must launch (for Matérn, the
+   posterior-mean route); check the outputs against the plain path;
 5. the LM slice's prefill: qwen2-0.5b at full width in bf16 (seeded random
    weights) on one 32768-token prompt, counters at 0 just before; the
    tensor-core flash kernel must launch once per layer, the fp32 one never; the last position's logits must be
@@ -73,7 +80,14 @@ PEAK_BF16_FLOPS = 989e12  # dense, tensor cores
 # the kernel's division is) feeds back into the momenta at ~1e-4 of their size.
 SWE_REL_TOL = 1e-5  # max |kernel - plain| / max(max |plain|, 1), per step
 SWEEP_REL_TOL = 1e-5  # same measure for one sweep's tendencies
-MATERN_ATOL = 5e-6  # as the reference's kernel test; the kernel contracts FMAs
+MATERN_ATOL = 5e-6  # as the reference's kernel test
+# The posterior-mean kernel: held bit for bit against the matrix kernel
+# followed by the PyTorch contraction (the same operations in the same
+# order), and against its plain version within the Matérn bound carried
+# through the sum: 5e-6 sum_j |alpha_jq| y_scale_q for output q.  Shapes
+# (B, n, d) with p outputs: the main path's, its B = 1 rows, a ragged one.
+MATERN_MEAN_CASES = ((8, 512, 2), (1, 512, 2), (5, 300, 3))
+MATERN_MEAN_P = 4
 # Single-theta (sweep kernel) against batched (fused kernel) observables,
 # and the main path's observables against the plain path's, over a whole
 # solve.  Probe heights are h + b with h ~ 7 km, so they come in steps of
@@ -103,7 +117,8 @@ FLASH_BF16_ROW_RTOL = 2.0**-6
 FLASH_FP32_ROW_RTOL = 1e-4
 # Planted faults: each is one textual edit of a kernel source in csrc/,
 # built into its own library under build/planted/; the checks of that
-# source's kernels (flash_checks, swe_step_checks) must reject every one.
+# source's kernels (flash_checks, swe_step_checks, matern_checks) must
+# reject every one.
 # A rewrite of a kernel rewrites its edits with it.
 PLANTED_FAULTS = {
     # The diagonal kv tile left out of every query tile past row 8192 in the
@@ -121,13 +136,30 @@ PLANTED_FAULTS = {
         "for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];",
         "for (int i = 0; i < D / 2; ++i) acc[i] *= (it == 1 ? 1.f : alpha[(i >> 1) & 1]);",
     ),
-    # The fused SWE step's halo: the halo row past the tile's last row is
-    # loaded from the last row itself, so the tile's last y faces see no
-    # neighbour.
+    # The SWE tiles' halo (the fused step's and the y sweep's): the halo row
+    # past the tile's last row is loaded from the last row itself, so the
+    # tile's last y faces see no neighbour.
     "swe_halo_row_own_row": (
         "swe_flux.cu",
         "const int i = min(max(i0 + r - 1, 0), ny - 1);",
         "const int i = min(max(i0 + r - 1 - (r == TY + 1), 0), ny - 1);",
+    ),
+    # The x sweep's halo: the column east of the tile is loaded from the
+    # tile's own last column.
+    "sweep_x_halo_own_column": (
+        "swe_flux.cu",
+        "load_halo_cell(s, 1 + (c >> 1), (c & 1) * (kTileW + 1), h, hu, hv, b, off, i0, j0, ny,\n"
+        "                     nx);",
+        "load_halo_cell(s, 1 + (c >> 1), (c & 1) * (kTileW + 1), h, hu, hv, b, off, i0,\n"
+        "                     j0 - (c & 1), ny, nx);",
+    ),
+    # The posterior-mean kernel sums its tree in another order (each term
+    # with its mirror image instead of the term half the width away): every
+    # value stays within the Matérn bound, only the bits change.
+    "mean_tree_mirror_order": (
+        "matern.cu",
+        "s[q * width + j] += s[q * width + j + half];",
+        "s[q * width + j] += s[q * width + 2 * half - 1 - j];",
     ),
 }
 FLASH_CASES = [
@@ -152,8 +184,12 @@ SERVE_SLOTS = 8
 # logits (prefill: 64- vs 512-key blocks; first tokens: the chunked prefill
 # vs the serving prefill's decode steps).
 PREFILL_DIFF_FACTOR = 2.0
-MLDA_KERNELS = ("swe_fused_step", "swe_sweep", "matern52")
-KERNEL_ORDER = MLDA_KERNELS + ("flash_attention",)
+# Each MLDA row of the kernels line and the launch counter that the main
+# path must raise: the Matérn row's is the posterior-mean route (its matrix
+# route serves the variance, which the main path does not ask for).
+MLDA_KERNELS = {"swe_fused_step": "swe_fused_step", "swe_sweep": "swe_sweep",
+                "matern52": "matern52_mean"}
+KERNEL_ORDER = (*MLDA_KERNELS, "flash_attention")
 
 
 def fail(msg: str) -> None:
@@ -244,20 +280,24 @@ def _swe_thetas(torch, gen):
 
 
 def swe_step_checks(torch, thetas):
-    """The fused step kernel (whichever library ``build.LIBRARY`` loads)
-    against the plain step at 288x288 and 96x96 with B = 8, one step at a
-    time from the plain trajectory's state (errors do not compound), over 4
-    steps, as ``(label, measure, error, limit)``; also the largest absolute
-    difference and the 288x288 case ``(scenario, state, b, dt)``.
+    """The SWE kernels (whichever library ``build.LIBRARY`` loads) against
+    their plain versions, as ``(label, measure, error, limit)``; also the
+    largest absolute differences ``{"fused": .., "sweep": ..}`` and the
+    288x288 case ``(scenario, state, b, dt)``.
 
+    The fused step at 288x288 and 96x96 with B = 8, one step at a time from
+    the plain trajectory's state (errors do not compound), over 4 steps.
     Each step is also held bit for bit against the two sweep kernels and
     the Euler update in PyTorch (``swe_ops.swe_step``): the same IEEE
-    operations in the same order, one thread a cell computing every face
-    of its own, so a face computed once must have the bits of a face
-    computed twice.  The measure is the count of unequal values, limit 1."""
+    operations in the same order, so a face computed once in a tile of both
+    directions must have the bits of a face computed in a tile of one.  The
+    measure is the count of unequal values, limit 1.  Then one sweep in x
+    and in y at 288x288, B = 1 (the main path's single fine solve),
+    relative to each plane's largest plain value."""
     from repro_torch.kernels.swe_flux import ops as swe_ops
-    from repro_torch.kernels.swe_flux.ref import swe_fused_step_ref
+    from repro_torch.kernels.swe_flux.ref import swe_fused_step_ref, swe_sweep_ref
     from repro_torch.swe import TohokuScenario
+    from repro_torch.swe.solver import SWEState
 
     out, fused_err = [], 0.0
     for n in (288, 96):
@@ -279,12 +319,135 @@ def swe_step_checks(torch, thetas):
             p_state = p_next
         if n == 288:
             case = (sc, state, b, dt)
-    return out, fused_err, case
+    sc, state, b, _ = case
+    one = SWEState(*(x[0].contiguous() for x in state))
+    sweep_err = 0.0
+    for axis, d in ((0, sc.cfg.dx), (1, sc.cfg.dy)):
+        k = swe_ops.swe_sweep(*one, b, axis=axis, g=sc.cfg.g, d=d)
+        p = swe_sweep_ref(*one, b, axis=axis, g=sc.cfg.g, d=d)
+        torch.cuda.synchronize()
+        for name, kk, pp in zip(("dh", "dhu", "dhv"), k, p):
+            diff = float((kk - pp).abs().max())
+            sweep_err = max(sweep_err, diff)
+            out.append((f"swe_sweep 288x288 axis={axis} {name}", "rel err",
+                        diff / max(float(pp.abs().max()), 1e-30), SWEEP_REL_TOL))
+    return out, {"fused": fused_err, "sweep": sweep_err}, case
+
+
+def _mean_inputs(torch, gen, B: int, n: int, d: int, p: int):
+    """Posterior-mean inputs as a level-0 GP holds them: raw points in the
+    prior box, lengthscales ~100, scaled training points, alpha, y_scale,
+    y_mean; all on the card."""
+    ls = 100.0 * torch.exp(0.3 * torch.randn(d, generator=gen))
+    x = torch.rand((B, d), generator=gen) * 400.0 - 200.0
+    xs = (torch.rand((n, d), generator=gen) * 400.0 - 200.0) / ls
+    alpha = torch.randn((n, p), generator=gen)
+    y_scale = torch.exp(torch.randn(p, generator=gen))
+    y_mean = torch.randn(p, generator=gen)
+    return [v.cuda().contiguous() for v in (x, ls, xs, alpha, y_scale, y_mean)]
+
+
+def matern_checks(torch):
+    """The Matérn kernels (whichever library ``build.LIBRARY`` loads)
+    against their plain versions on the card, as ``(label, measure, error,
+    limit)``, and the largest absolute differences ``{"matrix": ..,
+    "mean": ..}``.
+
+    The matrix kernel at atol 5e-6.  The posterior-mean kernel bit for bit
+    against the matrix kernel followed by the PyTorch contraction that
+    ``predict`` ran before the mean kernel (unequal values, limit 1), and against its plain version per output
+    relative to the Matérn bound carried through the sum (limit 1)."""
+    from repro_torch.kernels.matern import ops as matern_ops
+    from repro_torch.kernels.matern.ref import (
+        matern52_mean_ref, matern52_ref, posterior_mean_from_matrix,
+    )
+
+    gen = torch.Generator().manual_seed(2)
+    out, err = [], {"matrix": 0.0, "mean": 0.0}
+    for (n, m, d) in ((8, 512, 2), (130, 70, 5)):
+        a = torch.randn((n, d), generator=gen).cuda() / 0.7
+        bb = torch.randn((m, d), generator=gen).cuda() / 0.7
+        k = matern_ops.matern52_scaled(a, bb, 1.3)
+        torch.cuda.synchronize()
+        e = float((k - matern52_ref(a, bb, 1.3)).abs().max())
+        err["matrix"] = max(err["matrix"], e)
+        out.append((f"matern52 ({n},{d})x({m},{d})", "max abs err", e, MATERN_ATOL))
+    for (B, n, d) in MATERN_MEAN_CASES:
+        x, ls, xs, alpha, ys, ym = _mean_inputs(torch, gen, B, n, d, MATERN_MEAN_P)
+        label = f"matern52_mean ({B},{d})x({n},{d}) p={MATERN_MEAN_P}"
+        got = matern_ops.matern52_mean(x, ls, xs, alpha, ys, ym, 1.3)
+        ks = matern_ops.matern52_scaled((x / ls).contiguous(), xs, 1.3)
+        composed = posterior_mean_from_matrix(ks, alpha, ys, ym)
+        plain = matern52_mean_ref(x, ls, xs, alpha, ys, ym, 1.3)
+        torch.cuda.synchronize()
+        out.append((f"{label} vs matrix kernel + contraction", "unequal values",
+                    int((got != composed).sum()), 1))
+        bound = MATERN_ATOL * alpha.abs().sum(0) * ys
+        diff = (got - plain).abs()
+        err["mean"] = max(err["mean"], float(diff.max()))
+        out.append((f"{label} vs plain", "max err / bound", float((diff / bound).max()), 1.0))
+    return out, err
+
+
+def _level0_gp(torch):
+    """A level-0 GP as the main path fits it (512 LHS points in the prior
+    box, four smooth outputs), with 20 Adam steps; on the card."""
+    from repro_torch.core.gp import fit_gp
+    from repro_torch.core.lhs import latin_hypercube, scale_to_bounds
+
+    gen = torch.Generator().manual_seed(1)
+    x = scale_to_bounds(latin_hypercube(gen, 512, 2), [-200, -200], [200, 200]).cuda()
+    y = torch.stack([torch.sin(x[:, 0] / 90), torch.cos(x[:, 1] / 70),
+                     x[:, 0] * x[:, 1] / 4e4, torch.tanh(x[:, 0] / 150)], dim=1)
+    return fit_gp(x, y, steps=20)
+
+
+def _predict_before(gp, x):
+    """The posterior mean as the level-0 call computed it before the mean
+    kernel: the lengthscales' exp, the division, the matrix kernel, then
+    the product with alpha, nine halving adds and the affine step."""
+    from repro_torch.kernels.matern import ops as matern_ops
+    from repro_torch.kernels.matern.ref import posterior_mean_from_matrix
+
+    a = (x / gp.params.log_lengthscales.exp()).contiguous()
+    ks = matern_ops.matern52_scaled(a, gp._x_scaled, gp._outputscale)
+    return posterior_mean_from_matrix(ks, gp.alpha, gp.y_scale, gp.y_mean)
+
+
+def host_time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
+    """Mean wall time of ``fn`` per call by the host's clock, each call
+    ended by ``torch.cuda.synchronize()``: what a caller that waits for the
+    result sees."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        total += time.perf_counter() - t0
+    return total / iters * 1e3
+
+
+def cuda_kernels_of(torch, fn):
+    """The names of the CUDA kernels that one call of ``fn`` launches, from
+    ``torch.profiler`` (copies and memsets left out)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.name.startswith(("Memcpy", "Memset"))]
 
 
 def phase_kernels(torch, rows):
     from repro_torch.kernels.matern import ops as matern_ops
-    from repro_torch.kernels.matern.ref import matern52_ref
+    from repro_torch.kernels.matern.ref import matern52_mean_ref, matern52_ref
     from repro_torch.kernels.swe_flux import ops as swe_ops
     from repro_torch.kernels.swe_flux.ref import swe_fused_step_ref, swe_sweep_ref
     from repro_torch.swe import TohokuScenario
@@ -293,27 +456,16 @@ def phase_kernels(torch, rows):
     gen = torch.Generator().manual_seed(0)
     thetas = _swe_thetas(torch, gen)
 
-    # -- fused step: kernel vs plain, per step -------------------------------
-    checks, fused_err, fused_case = swe_step_checks(torch, thetas)
-    for label, measure, err, limit in checks:
-        print(f"[2] {label}: {measure} {err:.3e}")
+    # -- SWE: fused step per step, sweeps in x and y, against plain ----------
+    checks, swe_err, fused_case = swe_step_checks(torch, thetas)
+    # -- Matérn: matrix and posterior mean -----------------------------------
+    m_checks, matern_err = matern_checks(torch)
+    for label, measure, err, limit in checks + m_checks:
+        print(f"[2] {label}: {measure} {err:.3e} (limit {limit:.3e})")
         if not err < limit:
             fail(f"{label} {measure} {err} >= {limit}")
-
-    # -- sweep: one sweep in x and in y at 288x288 ---------------------------
     sc, state, b, dt = fused_case
     one = SWEState(*(x[0].contiguous() for x in state))
-    sweep_err = 0.0
-    for axis, d in ((0, sc.cfg.dx), (1, sc.cfg.dy)):
-        k = swe_ops.swe_sweep(*one, b, axis=axis, g=sc.cfg.g, d=d)
-        p = swe_sweep_ref(*one, b, axis=axis, g=sc.cfg.g, d=d)
-        torch.cuda.synchronize()
-        for name, kk, pp in zip(("dh", "dhu", "dhv"), k, p):
-            err = float((kk - pp).abs().max()) / max(float(pp.abs().max()), 1e-30)
-            sweep_err = max(sweep_err, float((kk - pp).abs().max()))
-            print(f"[2] swe_sweep 288x288 axis={axis} {name}: rel err {err:.3e}")
-            if not err < SWEEP_REL_TOL:
-                fail(f"sweep axis {axis} {name} rel err {err} >= {SWEEP_REL_TOL}")
 
     # -- lake at rest through both kernels: exactly balanced -----------------
     h_rest = torch.clamp_min(-b, 0.0)
@@ -331,21 +483,10 @@ def phase_kernels(torch, rows):
         if drift != 0.0 or mom != 0.0:
             fail(f"lake at rest not exact through the {name} kernel")
 
-    # -- Matérn --------------------------------------------------------------
-    matern_err = 0.0
-    for (n, m, d) in ((8, 512, 2), (130, 70, 5)):
-        a = torch.randn((n, d), generator=gen).cuda() / 0.7
-        bb = torch.randn((m, d), generator=gen).cuda() / 0.7
-        k = matern_ops.matern52_scaled(a, bb, 1.3)
-        p = matern52_ref(a, bb, 1.3)
-        torch.cuda.synchronize()
-        err = float((k - p).abs().max())
-        matern_err = max(matern_err, err)
-        print(f"[2] matern52 ({n},{d})x({m},{d}): max abs err {err:.3e}")
-        if not err < MATERN_ATOL:
-            fail(f"matern ({n},{m},{d}) err {err} >= {MATERN_ATOL}")
-
     # -- timing at the main path's heaviest shapes ---------------------------
+    # The launch floor: one 1-element zero_(), timed as the kernels are.
+    one_float = torch.empty(1, device="cuda")
+    floor_ms = device_time_ms(torch, one_float.zero_, 400)
     B, ny, nx = state.h.shape
     cur = SWEState(*(x.contiguous() for x in state))
     nxt = SWEState(*(torch.empty_like(x) for x in state))
@@ -384,29 +525,59 @@ def phase_kernels(torch, rows):
     )
     plane = ny * nx * 4
     f_bound = bound_ms(2 * 3 * B * plane + plane, FUSED_FLOPS_PER_CELL * B * ny * nx)
-    sweep_ms = device_time_ms(
-        torch, lambda: swe_ops.swe_sweep(*one, b, axis=0, g=sc.cfg.g, d=sc.cfg.dx), 400
-    )
-    sweep_plain_ms = device_time_ms(
-        torch, lambda: swe_sweep_ref(*one, b, axis=0, g=sc.cfg.g, d=sc.cfg.dx), 20
-    )
+    sweep_ms, sweep_plain_ms = {}, {}
+    for axis, d in ((0, sc.cfg.dx), (1, sc.cfg.dy)):
+        sweep_ms[axis] = device_time_ms(
+            torch, lambda: swe_ops.swe_sweep(*one, b, axis=axis, g=sc.cfg.g, d=d), 400
+        )
+        sweep_plain_ms[axis] = device_time_ms(
+            torch, lambda: swe_sweep_ref(*one, b, axis=axis, g=sc.cfg.g, d=d), 20
+        )
     s_bound = bound_ms(7 * plane, SWEEP_FLOPS_PER_CELL * ny * nx)
-    a = torch.randn((8, 2), generator=gen).cuda()
-    bb = torch.randn((512, 2), generator=gen).cuda()
-    matern_ms = device_time_ms(torch, lambda: matern_ops.matern52_scaled(a, bb, 1.3), 400)
-    matern_plain_ms = device_time_ms(torch, lambda: matern52_ref(a, bb, 1.3), 20)
-    m_bound = bound_ms((8 * 2 + 512 * 2 + 8 * 512) * 4, 8 * 512 * (3 * 2 + 15))
+
+    # Matérn: the mean kernel at the main path's shape, the matrix kernel at
+    # the same points, and a whole level-0 batch_call at B = 8 by the host's
+    # clock, before (the matrix kernel and the PyTorch contraction) and
+    # after (the mean kernel), in turns.
+    mb, mn, md, mp = 8, 512, 2, MATERN_MEAN_P
+    mean_in = _mean_inputs(torch, gen, mb, mn, md, mp)
+    mean_ms = device_time_ms(torch, lambda: matern_ops.matern52_mean(*mean_in, 1.3), 400)
+    mean_plain_ms = device_time_ms(torch, lambda: matern52_mean_ref(*mean_in, 1.3), 20)
+    m_bound = bound_ms((mb * md + md + mn * md + mn * mp + 2 * mp + mb * mp) * 4,
+                       mb * mn * (3 * md + 15 + 2 * mp) + 2 * mb * mp)
+    a = (mean_in[0] / mean_in[1]).contiguous()
+    xs = mean_in[2]
+    matern_ms = device_time_ms(torch, lambda: matern_ops.matern52_scaled(a, xs, 1.3), 400)
+    matern_plain_ms = device_time_ms(torch, lambda: matern52_ref(a, xs, 1.3), 20)
+    mx_bound = bound_ms((mb * md + mn * md + mb * mn) * 4, mb * mn * (3 * md + 15))
+    gp = _level0_gp(torch)
+    thetas8 = (torch.rand((8, 2), generator=gen) * 400.0 - 200.0).cuda()
+    walls = {"before": [], "after": []}
+    for which in ("before", "after", "after", "before"):
+        fn = (partial(_predict_before, gp, thetas8) if which == "before"
+              else partial(gp.batch_call, thetas8))
+        walls[which].append(host_time_ms(torch, fn, 200))
+    call_ms = {k: sum(v) / len(v) for k, v in walls.items()}
+    print(f"[2] launch floor (one 1-element zero_(), CUDA events): {floor_ms:.4f} ms")
     print("[2] device time per call (CUDA events): "
           f"fused 288x288 B=8 {fused_ms:.4f} ms (plain {fused_plain_ms:.4f}), over a whole "
           f"{n_fine}-step solve {whole_ms:.4f} ms a step, 96x96 B=8 {fused96_ms:.4f} ms; "
-          f"sweep 288x288 {sweep_ms:.4f} ms (plain {sweep_plain_ms:.4f}); "
-          f"matern (8,2)x(512,2) {matern_ms:.4f} ms (plain {matern_plain_ms:.4f}); "
-          "library_ms: no single PyTorch call computes any of the three functions")
+          f"sweep 288x288 B=1 x {sweep_ms[0]:.4f} ms (plain "
+          f"{sweep_plain_ms[0]:.4f}), y {sweep_ms[1]:.4f} ms (plain {sweep_plain_ms[1]:.4f}); "
+          f"matern52_mean (8,2)x(512,2) p={mp} {mean_ms:.4f} ms (plain {mean_plain_ms:.4f}); "
+          f"matern52 matrix (8,2)x(512,2) {matern_ms:.4f} ms (plain {matern_plain_ms:.4f}); "
+          f"launch floor {floor_ms:.4f} ms; "
+          "library_ms: no single PyTorch call computes any of these functions")
+    print(f"[2] level-0 GaussianProcess.batch_call at B=8 (host clock, ending in synchronize, "
+          f"mean of 2 x 200 calls in turns): before (matrix kernel + PyTorch contraction) "
+          f"{call_ms['before']:.4f} ms, after (mean kernel) {call_ms['after']:.4f} ms; "
+          f"runs {', '.join(f'{k} ' + '/'.join(f'{x:.4f}' for x in v) for k, v in walls.items())}")
     rows.update({
         "swe_fused_step": dict(
             route="cuda", source="src/repro_torch/csrc/swe_flux.cu",
             replaces="src/repro/kernels/swe_flux/swe_flux.py:204",
-            max_abs_err=fused_err, shape=f"({B}, {ny}, {nx}) fp32", ms=fused_ms, plain_ms=fused_plain_ms,
+            max_abs_err=swe_err["fused"], shape=f"({B}, {ny}, {nx}) fp32", ms=fused_ms,
+            plain_ms=fused_plain_ms,
             ms_whole_solve=whole_ms, whole_solve=f"{n_fine} steps from the source, ms a step",
             ms_at_coarse_shape=fused96_ms, coarse_shape=f"({B}, 96, 96) fp32",
             bound_ms=f_bound[0], bound_by=f_bound[1], library_ms=None,
@@ -414,14 +585,21 @@ def phase_kernels(torch, rows):
         "swe_sweep": dict(
             route="cuda", source="src/repro_torch/csrc/swe_flux.cu",
             replaces="src/repro/kernels/swe_flux/swe_flux.py:108",
-            max_abs_err=sweep_err, shape=f"({ny}, {nx}) fp32, x sweep", ms=sweep_ms, plain_ms=sweep_plain_ms,
+            max_abs_err=swe_err["sweep"], shape=f"({ny}, {nx}) fp32, x sweep", ms=sweep_ms[0],
+            plain_ms=sweep_plain_ms[0], ms_y=sweep_ms[1], plain_ms_y=sweep_plain_ms[1],
             bound_ms=s_bound[0], bound_by=s_bound[1], library_ms=None,
         ),
         "matern52": dict(
             route="cuda", source="src/repro_torch/csrc/matern.cu",
             replaces="src/repro/kernels/matern/matern.py:58",
-            max_abs_err=matern_err, shape="(8, 2) x (512, 2) fp32", ms=matern_ms, plain_ms=matern_plain_ms,
-            bound_ms=m_bound[0], bound_by=m_bound[1], library_ms=None,
+            max_abs_err=matern_err["mean"], shape=f"({mb}, {md}) x ({mn}, {md}) fp32, p = {mp}",
+            ms=mean_ms, plain_ms=mean_plain_ms, bound_ms=m_bound[0], bound_by=m_bound[1],
+            library_ms=None, launch_floor_ms=floor_ms,
+            kernel="matern52_mean_kernel: the posterior mean, one block a query row",
+            batch_call_ms_before=call_ms["before"], batch_call_ms_after=call_ms["after"],
+            matrix_kernel="matern52_kernel: the kernel matrix, for the posterior variance",
+            matrix_max_abs_err=matern_err["matrix"], matrix_ms=matern_ms,
+            matrix_plain_ms=matern_plain_ms, matrix_bound_ms=mx_bound[0],
         ),
     })
 
@@ -554,6 +732,7 @@ def phase_planted_faults(torch) -> None:
         "flash_attention.cu": lambda: flash_checks(torch)[0],
         "swe_flux.cu": lambda: swe_step_checks(
             torch, _swe_thetas(torch, torch.Generator().manual_seed(0)))[0],
+        "matern.cu": lambda: matern_checks(torch)[0],
     }
     libs = {}
     for name, (source, old, new) in PLANTED_FAULTS.items():
@@ -592,8 +771,7 @@ def phase_planted_faults(torch) -> None:
 def phase_batch_invariance(torch, w):
     import numpy as np
 
-    from repro_torch.core.gp import fit_gp
-    from repro_torch.core.lhs import latin_hypercube, scale_to_bounds
+    from repro_torch.kernels.matern import ops as matern_ops
     from repro_torch.swe import TohokuScenario
 
     rng = np.random.default_rng(3)
@@ -619,16 +797,24 @@ def phase_batch_invariance(torch, w):
               f"fused batched max abs diff {d_single:.3e}")
         if not d_single < OBS_ATOL:
             fail(f"level {level}: single vs batched observables differ by {d_single}")
-    gen = torch.Generator().manual_seed(1)
-    x = scale_to_bounds(latin_hypercube(gen, 512, 2), [-200, -200], [200, 200]).cuda()
-    y = torch.stack([torch.sin(x[:, 0] / 90), torch.cos(x[:, 1] / 70),
-                     x[:, 0] * x[:, 1] / 4e4, torch.tanh(x[:, 0] / 150)], dim=1)
-    gp = fit_gp(x, y, steps=20)
+    gp = _level0_gp(torch)
+    before = matern_ops.MEAN_LAUNCHES.value
     full = gp.batch_call(thetas)
     rows1 = torch.cat([gp.batch_call(thetas[i : i + 1]) for i in range(8)])
+    if matern_ops.MEAN_LAUNCHES.value != before + 9:
+        fail("GP batch_call did not go through the posterior-mean kernel once a call")
     if not torch.equal(full, rows1):
         fail("GP batch_call: B=1 rows differ from B=8 rows")
-    print("[3] level 0 GaussianProcess.batch_call (n=512): B=1 rows == B=8 rows bit for bit")
+    print("[3] level 0 GaussianProcess.batch_call (n=512, mean kernel): B=1 rows == B=8 rows "
+          "bit for bit")
+    # What one level-0 call launches on the card, under the profiler.
+    after = cuda_kernels_of(torch, lambda: gp.batch_call(thetas))
+    old = cuda_kernels_of(torch, lambda: _predict_before(gp, thetas))
+    print(f"[3] CUDA kernels of one batch_call at B=8 (torch.profiler): {len(after)} "
+          f"({', '.join(sorted(set(after)))}); before the mean kernel (matrix kernel + PyTorch "
+          f"contraction): {len(old)}")
+    if len(after) != 1:
+        fail(f"one level-0 batch_call launched {len(after)} CUDA kernels, want 1: {after}")
 
 
 # ---------------------------------------------------------------------------
@@ -656,10 +842,11 @@ def phase_main_path(torch, w, rows):
     launches = {name: c.value for name, c in build.COUNTERS.items()}
     print(f"[4] main path wall {wall:.1f}s; stage walls {res['walls']}; "
           f"kernel launches {launches}")
-    for name in MLDA_KERNELS:
-        rows[name]["launches"] = launches.get(name, 0)
+    for name, counter in MLDA_KERNELS.items():
+        rows[name]["launches"] = launches.get(counter, 0)
         if rows[name]["launches"] <= 0:
-            fail(f"kernel {name} was not launched by the main path")
+            fail(f"kernel {counter} was not launched by the main path")
+    rows["matern52"]["matrix_launches"] = launches.get("matern52", 0)
     if res["failures"]:
         fail(f"chains failed: {res['failures']}")
     chains = np.asarray(res["chains"])

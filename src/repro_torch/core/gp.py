@@ -6,9 +6,10 @@ Adam on the marginal likelihood; vector-valued outputs share one kernel.
 
 Training (:func:`fit_gp`, :func:`neg_log_marginal_likelihood`) runs the
 plain, differentiable :func:`matern52` through autograd.  Prediction
-(:meth:`GaussianProcess.predict`) assembles the kernel matrix through
-:mod:`repro_torch.kernels.matern`: the CUDA kernel on the card, its plain
-version on the CPU.
+(:meth:`GaussianProcess.predict`) goes through
+:mod:`repro_torch.kernels.matern`: the posterior mean in one kernel launch
+on the card, the kernel matrix as well where the variance is asked for;
+their plain versions on the CPU.
 """
 from __future__ import annotations
 
@@ -73,26 +74,6 @@ def neg_log_marginal_likelihood(
     return torch.where(info == 0, nll, torch.nan)
 
 
-def _fixed_order_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """Sum over ``dim`` by pairwise halving, an order fixed by that axis'
-    length alone.
-
-    Every step is an elementwise add, so an output element does not depend
-    on the sizes of the other axes: a reduction kernel may pick its
-    blocking (and so its summation order) by the whole tensor's shape.
-    """
-    n = x.shape[dim]
-    width = 1 << max(n - 1, 0).bit_length()
-    if width != n:
-        pad = list(x.shape)
-        pad[dim] = width - n
-        x = torch.cat([x, x.new_zeros(pad)], dim=dim)
-    while x.shape[dim] > 1:
-        half = x.shape[dim] // 2
-        x = x.narrow(dim, 0, half) + x.narrow(dim, half, half)
-    return x.squeeze(dim)
-
-
 @dataclass
 class GaussianProcess:
     """Trained GP surrogate; construct via :func:`fit_gp` or
@@ -105,15 +86,20 @@ class GaussianProcess:
     params: GPParams
     chol: torch.Tensor  # (n, n)
     alpha: torch.Tensor  # (n, p)
-    # Prediction constants, fixed once the parameters are: the scaled
-    # training inputs and the output scale as a host float (no per-call sync).
+    # Prediction constants, fixed once the parameters are: the lengthscales,
+    # the scaled training inputs and the output scale as a host float (no
+    # per-call launch or sync).
+    _ls: torch.Tensor = field(init=False, repr=False)
     _x_scaled: torch.Tensor = field(init=False, repr=False)
     _outputscale: float = field(init=False, repr=False)
 
     def __post_init__(self) -> None:
-        ls = torch.exp(self.params.log_lengthscales)
-        self._x_scaled = (self.x_train / ls).contiguous()
+        self._ls = torch.exp(self.params.log_lengthscales).contiguous()
+        self._x_scaled = (self.x_train / self._ls).contiguous()
         self._outputscale = float(torch.exp(self.params.log_outputscale))
+        self.alpha, self.y_scale, self.y_mean = (
+            t.contiguous() for t in (self.alpha, self.y_scale, self.y_mean)
+        )
 
     @property
     def device(self) -> torch.device:
@@ -121,18 +107,17 @@ class GaussianProcess:
 
     def predict(self, x: torch.Tensor, return_var: bool = False):
         """Posterior mean (and variance) at x: (m, d) -> (m, p)."""
-        x = torch.atleast_2d(x.to(device=self.device, dtype=torch.float32))
-        a = (x / torch.exp(self.params.log_lengthscales)).contiguous()
-        ks = matern_ops.matern52_scaled(a, self._x_scaled, self._outputscale)
-        # Elementwise multiply + fixed-order reduce instead of `ks @ alpha`:
-        # rows must not depend on the number of rows m (batched results equal
-        # per-request results bit for bit).
-        mean = (
-            _fixed_order_sum(ks[:, :, None] * self.alpha[None, :, :], dim=1)
-            * self.y_scale + self.y_mean
+        x = torch.atleast_2d(x.to(device=self.device, dtype=torch.float32)).contiguous()
+        # One launch on the card; a row does not depend on the number of rows
+        # (batched results equal per-request results bit for bit).
+        mean = matern_ops.matern52_mean(
+            x, self._ls, self._x_scaled, self.alpha, self.y_scale, self.y_mean,
+            self._outputscale,
         )
         if not return_var:
             return mean
+        a = (x / self._ls).contiguous()
+        ks = matern_ops.matern52_scaled(a, self._x_scaled, self._outputscale)
         v = torch.linalg.solve_triangular(self.chol, ks.T, upper=False)
         kss = torch.exp(self.params.log_outputscale)
         var = torch.clamp_min(kss - torch.sum(v * v, dim=0), 1e-12)

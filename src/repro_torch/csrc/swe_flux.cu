@@ -6,7 +6,9 @@
 //     step of the whole scheme for a stacked batch, x and y sweeps fused;
 //   * swe_sweep       <- kernels/swe_flux/swe_flux.py:108 swe_sweep_pallas
 //     (body _sweep_kernel :98): one directional sweep returning the
-//     (dh, dhu, dhv)/d tendencies; the Euler update stays in PyTorch.
+//     (dh, dhu, dhv)/d tendencies; the Euler update stays in PyTorch.  The
+//     main path runs it at 288 x 288 with B = 1, for the single fine solve
+//     that makes the synthetic observations.
 //
 // Scheme (repro swe/solver.py): hydrostatic reconstruction b* = max(bL, bR),
 // desingularised velocities, Rusanov flux with the advective momentum flux
@@ -19,13 +21,13 @@
 // 3.35 TB/s.  But the arithmetic is IEEE throughout (--fmad=false, below),
 // every sqrt and division is a multi-instruction sequence, and a cell that
 // computes its own four faces computes every face twice and its
-// neighbours' velocities (desing: one sqrt, one division each) eight times.
+// neighbours' velocities (one sqrt, one division each) eight times.
 //
 // What the design does about it: a block owns a 32 x TY tile of one batch
 // member, one cell a thread (lane = column, warp = row), and works in three
 // phases behind __syncthreads, through shared memory:
 //   1. it loads the (TY+2) x (32+2) halo tile of h, hu, hv and b, and
-//      computes each cell's velocities desing(h, hu), desing(h, hv) once
+//      computes each cell's velocities u = hu / h, v = hv / h once
 //      (the two share their denominator's sqrt);
 //   2. it computes each of the tile's TY x 33 x faces and (TY+1) x 32 y
 //      faces once (f0, f1, f2, hL, hR): each thread the x face west of its
@@ -39,16 +41,22 @@
 // ocean before the wave arrives.  The probe gauge eta = h + b of the step
 // is written by the block whose tile holds the probe, from shared memory,
 // straight into the (B, T, P) series buffer, so a time step is one launch.
-// Every operation and its order are those of the one-thread-per-cell form
-// (the sweep's helpers below), so the step has its bits; a face computed
-// once has the bits it had when two cells computed it.  Two tile shapes:
-// 32 x 8 where the blocks fill every SM four times over (the fine level,
-// 288 x 288 x 8), 32 x 4 below that (the coarse level, 96 x 96 x 8, is
-// 73,728 cells: larger tiles would leave SMs idle).  What still bounds the
+// Every operation and its order are those of a cell that computes its own
+// faces (face_flux_uv, tendency), so a face computed once has the bits it
+// had when two cells computed it.  Two tile shapes: 32 x 8 where the blocks
+// fill every SM four times over (the fine level, 288 x 288 x 8), 32 x 4
+// below that (the coarse level, 96 x 96 x 8, is 73,728 cells: larger tiles
+// would leave SMs idle).  What still bounds the
 // step is instruction issue: every sqrt and division is an estimate, its
 // refinement and a range check branching to a slow-path subroutine, about
 // a third of the kernel's SASS, and the branches cut the code into short
 // blocks that the scheduler cannot interleave.
+//
+// The sweep is the same tile kernel in one-direction mode: it loads the halo
+// along its axis only, computes each cell's velocities once and each face
+// normal to its axis once, and writes each cell's tendencies from its two
+// faces.  At 288 x 288 and B = 1 it has ~20 warps an SM: its launch and the
+// tile's latency, not bytes, bound it.
 // The TPU design of one program per padded plane (and its 8 MiB VMEM limit
 // and strip fallback) has no counterpart: the kernel works at any grid size.
 //
@@ -77,13 +85,6 @@ struct Tendency {
 // and the IEEE division sends a zero dividend down its slow path.
 __device__ __forceinline__ float div_nz(float a, float b) { return a == 0.f ? a : a / b; }
 
-__device__ __forceinline__ float desing(float h, float hq) {
-  // u = hq/h without dividing by ~0 in dry cells (Kurganov-Petrova).
-  float h2 = h * h;
-  float h4 = h2 * h2;
-  return kSqrt2 * h * hq / sqrtf(h4 + fmaxf(h4, kEps4));
-}
-
 // Rusanov flux through the face between cell l and cell r along the normal
 // axis, from each side's depth, velocities along the normal (u) and across
 // it (v), and bed.
@@ -105,60 +106,28 @@ __device__ __forceinline__ Face face_flux_uv(float hl, float uL, float vL, float
   return f;
 }
 
-// The same flux from each side's momenta: qn along the normal, qt across it.
-__device__ __forceinline__ Face face_flux(float hl, float qnl, float qtl, float bl,
-                                          float hr, float qnr, float qtr, float br,
-                                          float g) {
-  return face_flux_uv(hl, desing(hl, qnl), desing(hl, qtl), bl, hr, desing(hr, qnr),
-                      desing(hr, qtr), br, g);
-}
-
-// Flux difference of a cell's two faces plus the deviation-form pressure.
-// kZeroSkip: divide with div_nz (the fused step) instead of a / d (the
-// sweep); both give the same bits.
-template <bool kZeroSkip>
-__device__ __forceinline__ Tendency tendency(const Face& l, const Face& r, float g,
-                                             float d) {
-  auto div = [d](float a) { return kZeroSkip ? div_nz(a, d) : a / d; };
+// Flux difference of a cell's two faces plus the deviation-form pressure,
+// over the cell width d.
+__device__ __forceinline__ Tendency tendency(const Face& l, const Face& r, float g, float d) {
   Tendency t;
   float press = 0.25f * g *
                 ((r.hR - r.hL) * (r.hR + r.hL) + (l.hR - l.hL) * (l.hR + l.hL));
-  t.dh = div(r.f0 - l.f0);
-  t.dn = div((r.f1 - l.f1) + press);
-  t.dt = div(r.f2 - l.f2);
+  t.dh = div_nz(r.f0 - l.f0, d);
+  t.dn = div_nz((r.f1 - l.f1) + press, d);
+  t.dt = div_nz(r.f2 - l.f2, d);
   return t;
 }
 
-struct Cell {
-  float h, hu, hv, b;
-};
-
-__device__ __forceinline__ Cell load(const float* __restrict__ h,
-                                     const float* __restrict__ hu,
-                                     const float* __restrict__ hv,
-                                     const float* __restrict__ b,
-                                     size_t k, size_t kb) {
-  return Cell{__ldg(h + k), __ldg(hu + k), __ldg(hv + k), __ldg(b + kb)};
-}
-
-// x faces take (hu, hv) as (normal, tangential); y faces take (hv, hu).
-__device__ __forceinline__ Face x_face(const Cell& l, const Cell& r, float g) {
-  return face_flux(l.h, l.hu, l.hv, l.b, r.h, r.hu, r.hv, r.b, g);
-}
-__device__ __forceinline__ Face y_face(const Cell& l, const Cell& r, float g) {
-  return face_flux(l.h, l.hv, l.hu, l.b, r.h, r.hv, r.hu, r.b, g);
-}
-
 // ---------------------------------------------------------------------------
-// The fused step: a tile of kTileW x TY cells a block, one cell a thread
-// (lane = column, warp = row).
+// Tiles of kTileW x TY cells a block, one cell a thread (lane = column, warp
+// = row): the fused step, and the sweep in one direction.
 // ---------------------------------------------------------------------------
 constexpr int kTileW = 32;
 
 template <int TY>
 struct StepTile {
   static constexpr int kW = kTileW + 2, kH = TY + 2;  // halo tile
-  float4 cell[kH][kW];  // h, desing(h, hu), desing(h, hv), b
+  float4 cell[kH][kW];  // h, u, v, b (u, v desingularised)
   float hu[kH][kW], hv[kH][kW];
   // x face [r][c] lies west of tile cell (r, c), y face [r][c] south of it;
   // f0, f1, f2, hL in one float4, hR beside it.
@@ -169,8 +138,9 @@ struct StepTile {
 };
 
 // Halo cell (r, c) of the tile at (i0, j0): load it and compute its
-// velocities desing(h, hu) and desing(h, hv), which share their sqrt.
-// Clamped rows and columns = zero-gradient (outflow) ghost cells.
+// velocities u = hu / h and v = hv / h without dividing by ~0 in dry cells
+// (Kurganov-Petrova desingularisation), which share their sqrt.  Clamped
+// rows and columns = zero-gradient (outflow) ghost cells.
 template <int TY>
 __device__ __forceinline__ void load_halo_cell(StepTile<TY>& s, int r, int c,
                                                const float* __restrict__ h,
@@ -211,6 +181,39 @@ __device__ __forceinline__ Face face_at(const float4& f, float hR) {
   return Face{f.x, f.y, f.z, f.w, hR};
 }
 
+// Every x face of the tile once, from the loaded halo rows 1..TY: each
+// thread the face west of its cell, warp TY - 2 the faces east of the tile.
+template <int TY>
+__device__ __forceinline__ void x_faces(StepTile<TY>& s, int r, int c, float g) {
+  store_face<true>(&s.xf[r][c], &s.xhr[r][c], s.cell[r + 1][c], s.cell[r + 1][c + 1], g);
+  if (r == TY - 2 && c < TY)
+    store_face<true>(&s.xf[c][kTileW], &s.xhr[c][kTileW], s.cell[c + 1][kTileW],
+                     s.cell[c + 1][kTileW + 1], g);
+}
+
+// Every y face of the tile once, from the loaded halo columns 1..32: each
+// thread the face south of its cell, warp TY - 1 the faces north of the tile.
+template <int TY>
+__device__ __forceinline__ void y_faces(StepTile<TY>& s, int r, int c, float g) {
+  store_face<false>(&s.yf[r][c], &s.yhr[r][c], s.cell[r][c + 1], s.cell[r + 1][c + 1], g);
+  if (r == TY - 1)
+    store_face<false>(&s.yf[TY][c], &s.yhr[TY][c], s.cell[TY][c + 1], s.cell[TY + 1][c + 1], g);
+}
+
+// A cell's x and y tendencies from the faces in shared memory.
+template <int TY>
+__device__ __forceinline__ Tendency x_tendency(const StepTile<TY>& s, int r, int c, float g,
+                                               float dx) {
+  return tendency(face_at(s.xf[r][c], s.xhr[r][c]), face_at(s.xf[r][c + 1], s.xhr[r][c + 1]),
+                  g, dx);
+}
+template <int TY>
+__device__ __forceinline__ Tendency y_tendency(const StepTile<TY>& s, int r, int c, float g,
+                                               float dy) {
+  return tendency(face_at(s.yf[r][c], s.yhr[r][c]), face_at(s.yf[r + 1][c], s.yhr[r + 1][c]),
+                  g, dy);
+}
+
 // A block of 32 x TY threads; 2048 threads (64 warps) an SM, so at most 32
 // registers a thread.
 template <int TY>
@@ -238,23 +241,14 @@ __global__ void __launch_bounds__(kTileW * TY, 2048 / (kTileW * TY)) swe_fused_s
     load_halo_cell(s, c >> 1, (c & 1) * (kTileW + 1), h, hu, hv, b, off, i0, j0, ny, nx);
   __syncthreads();
 
-  // 2. Every face of the tile once: each thread the x face west of its cell
-  //    and the y face south of it; warp TY - 1 also the y faces north of the
-  //    tile, warp TY - 2 the x faces east of it.
-  store_face<true>(&s.xf[r][c], &s.xhr[r][c], s.cell[r + 1][c], s.cell[r + 1][c + 1], g);
-  store_face<false>(&s.yf[r][c], &s.yhr[r][c], s.cell[r][c + 1], s.cell[r + 1][c + 1], g);
-  if (r == TY - 1)
-    store_face<false>(&s.yf[TY][c], &s.yhr[TY][c], s.cell[TY][c + 1], s.cell[TY + 1][c + 1], g);
-  if (r == TY - 2 && c < TY)
-    store_face<true>(&s.xf[c][kTileW], &s.xhr[c][kTileW], s.cell[c + 1][kTileW],
-                     s.cell[c + 1][kTileW + 1], g);
+  // 2. Every face of the tile once.
+  x_faces(s, r, c, g);
+  y_faces(s, r, c, g);
   __syncthreads();
 
   // 3. The cell from its four faces.
-  const Tendency tX = tendency<true>(face_at(s.xf[r][c], s.xhr[r][c]),
-                                     face_at(s.xf[r][c + 1], s.xhr[r][c + 1]), g, dx);
-  const Tendency tY = tendency<true>(face_at(s.yf[r][c], s.yhr[r][c]),
-                                     face_at(s.yf[r + 1][c], s.yhr[r + 1][c]), g, dy);
+  const Tendency tX = x_tendency(s, r, c, g, dx);
+  const Tendency tY = y_tendency(s, r, c, g, dy);
   const float ch = s.cell[r + 1][c + 1].x;
   // x: (dh, dhu, dhv) = (dh, dn, dt);  y: (dh, dhv, dhu) = (dh, dn, dt).
   const float h_new = fmaxf(ch - dt * (tX.dh + tY.dh), 0.f);
@@ -284,52 +278,59 @@ __global__ void __launch_bounds__(kTileW * TY, 2048 / (kTileW * TY)) swe_fused_s
   }
 }
 
-__global__ void swe_sweep_kernel(
+// One directional sweep (kX: along x, else y) of a 32 x TY tile: the
+// fused step's phases 1-3 for one axis, writing the tendencies.
+template <bool kX, int TY>
+__global__ void __launch_bounds__(kTileW * TY, 2048 / (kTileW * TY)) swe_sweep_kernel(
     const float* __restrict__ h, const float* __restrict__ hu,
     const float* __restrict__ hv, const float* __restrict__ b,
     float* __restrict__ dh, float* __restrict__ dhu, float* __restrict__ dhv,
-    int ny, int nx, int axis, float g, float d) {
-  int j = blockIdx.x * blockDim.x + threadIdx.x;
-  int i = blockIdx.y * blockDim.y + threadIdx.y;
-  if (i >= ny || j >= nx) return;
-  size_t off = (size_t)blockIdx.z * ny * nx;
-  const float* H = h + off;
-  const float* HU = hu + off;
-  const float* HV = hv + off;
-  size_t kc = (size_t)i * nx + j;
-  size_t kl, kr;  // the two neighbours along the sweep axis
-  if (axis == 0) {
-    kl = (size_t)i * nx + max(j - 1, 0);
-    kr = (size_t)i * nx + min(j + 1, nx - 1);
-  } else {
-    kl = (size_t)max(i - 1, 0) * nx + j;
-    kr = (size_t)min(i + 1, ny - 1) * nx + j;
+    int ny, int nx, float g, float d) {
+  static_assert(TY >= 2 && 2 * TY <= kTileW, "warp 0 loads the x halo's two columns");
+  __shared__ StepTile<TY> s;
+  const int c = threadIdx.x, r = threadIdx.y;  // this thread's cell
+  const int n = blockIdx.z;
+  const int i0 = blockIdx.y * TY, j0 = blockIdx.x * kTileW;
+  const size_t off = (size_t)n * ny * nx;
+
+  // 1. The tile's cells and the halo along the axis, with their velocities:
+  //    each thread its own cell; for x, warp 0 the two edge columns; for y,
+  //    warps 0 and 1 the rows below and above the tile.
+  load_halo_cell(s, r + 1, c + 1, h, hu, hv, b, off, i0, j0, ny, nx);
+  if (kX) {
+    if (r == 0 && c < 2 * TY)
+      load_halo_cell(s, 1 + (c >> 1), (c & 1) * (kTileW + 1), h, hu, hv, b, off, i0, j0, ny,
+                     nx);
+  } else if (r < 2) {
+    load_halo_cell(s, r * (TY + 1), c + 1, h, hu, hv, b, off, i0, j0, ny, nx);
   }
-  Cell c = load(H, HU, HV, b, kc, kc);
-  Cell l = load(H, HU, HV, b, kl, kl);
-  Cell r = load(H, HU, HV, b, kr, kr);
-  if (axis == 0) {
-    Tendency t = tendency<false>(x_face(l, c, g), x_face(c, r, g), g, d);
-    dh[off + kc] = t.dh;
-    dhu[off + kc] = t.dn;
-    dhv[off + kc] = t.dt;
-  } else {
-    Tendency t = tendency<false>(y_face(l, c, g), y_face(c, r, g), g, d);
-    dh[off + kc] = t.dh;
-    dhu[off + kc] = t.dt;
-    dhv[off + kc] = t.dn;
+  __syncthreads();
+
+  // 2. Every face normal to the axis once.
+  if (kX)
+    x_faces(s, r, c, g);
+  else
+    y_faces(s, r, c, g);
+  __syncthreads();
+
+  // 3. The cell from its two faces.  x: (dh, dhu, dhv) = (dh, dn, dt);
+  //    y: (dh, dhv, dhu) = (dh, dn, dt).
+  const int i = i0 + r, j = j0 + c;
+  if (i < ny && j < nx) {
+    const size_t kc = off + (size_t)i * nx + j;
+    const Tendency t = kX ? x_tendency(s, r, c, g, d) : y_tendency(s, r, c, g, d);
+    dh[kc] = t.dh;
+    dhu[kc] = kX ? t.dn : t.dt;
+    dhv[kc] = kX ? t.dt : t.dn;
   }
 }
-
-constexpr int kTileX = 32;
-constexpr int kTileY = 8;
 
 dim3 tile_grid(int B, int ny, int nx, int tx, int ty) {
   return dim3((nx + tx - 1) / tx, (ny + ty - 1) / ty, B);
 }
 
-// The fused step's tile heights: 32 x 8 at the fine level, 32 x 4 where the
-// grid is too small to fill the card with 32 x 8 tiles (see the top).
+// The tile heights: 32 x 8 where those blocks fill every SM four times over
+// (the fused step at the fine level), else 32 x 4 (see the top).
 constexpr int kFineTY = 8, kCoarseTY = 4;
 
 template <int TY>
@@ -353,6 +354,19 @@ int sm_count() {
   return n;
 }
 
+bool fine_tiles(int B, int ny, int nx) {
+  const dim3 fine = tile_grid(B, ny, nx, kTileW, kFineTY);
+  return (long)fine.x * fine.y * fine.z >= 4L * sm_count();
+}
+
+template <bool kX, int TY>
+void launch_sweep(int B, int ny, int nx, cudaStream_t stream, const float* h,
+                  const float* hu, const float* hv, const float* b, float* dh, float* dhu,
+                  float* dhv, float g, float d) {
+  swe_sweep_kernel<kX, TY><<<tile_grid(B, ny, nx, kTileW, TY), dim3(kTileW, TY), 0, stream>>>(
+      h, hu, hv, b, dh, dhu, dhv, ny, nx, g, d);
+}
+
 }  // namespace
 
 extern "C" {
@@ -365,11 +379,7 @@ int swe_fused_step(const float* h, const float* hu, const float* hv,
                    float* series, const int* pi, const int* pj, int n_probes,
                    int t, int n_steps, int B, int ny, int nx, float g, float dx,
                    float dy, float dt, void* stream) {
-  // The fine tiles where their blocks fill every SM four times over.
-  const dim3 fine = tile_grid(B, ny, nx, kTileW, kFineTY);
-  auto launch = (long)fine.x * fine.y * fine.z >= 4L * sm_count()
-                    ? launch_fused<kFineTY>
-                    : launch_fused<kCoarseTY>;
+  auto launch = fine_tiles(B, ny, nx) ? launch_fused<kFineTY> : launch_fused<kCoarseTY>;
   launch(B, ny, nx, (cudaStream_t)stream, h, hu, hv, b, h_out, hu_out, hv_out, series,
          pi, pj, n_probes, t, n_steps, g, dx, dy, dt);
   return (int)cudaGetLastError();
@@ -380,10 +390,10 @@ int swe_fused_step(const float* h, const float* hu, const float* hv,
 int swe_sweep(const float* h, const float* hu, const float* hv, const float* b,
               float* dh, float* dhu, float* dhv, int B, int ny, int nx,
               int axis, float g, float d, void* stream) {
-  swe_sweep_kernel<<<tile_grid(B, ny, nx, kTileX, kTileY),
-                     dim3(kTileX, kTileY), 0,
-                     (cudaStream_t)stream>>>(h, hu, hv, b, dh, dhu, dhv, ny, nx,
-                                              axis, g, d);
+  const bool fine = fine_tiles(B, ny, nx);
+  auto launch = axis == 0 ? (fine ? launch_sweep<true, kFineTY> : launch_sweep<true, kCoarseTY>)
+                          : (fine ? launch_sweep<false, kFineTY> : launch_sweep<false, kCoarseTY>);
+  launch(B, ny, nx, (cudaStream_t)stream, h, hu, hv, b, dh, dhu, dhv, g, d);
   return (int)cudaGetLastError();
 }
 

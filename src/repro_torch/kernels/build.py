@@ -30,8 +30,10 @@ NVCC_FLAGS = (
 # Flags of one source only.  The SWE step must not contract a*b+c into FMAs:
 # at 7 km depth one ulp of h is 0.5 mm of sea surface, whose pressure
 # gradient moves the momentum by ~1e-4 of its size in a step, so the kernel
-# keeps the plain version's IEEE rounding of every operation instead.
-EXTRA_FLAGS = {"swe_flux": ("--fmad=false",)}
+# keeps the plain version's IEEE rounding of every operation instead.  The
+# Matérn kernels neither: the posterior mean keeps the bits of the matrix
+# kernel followed by PyTorch's separately rounded multiplies and adds.
+EXTRA_FLAGS = {"swe_flux": ("--fmad=false",), "matern": ("--fmad=false",)}
 
 # A C signature: (restype, [argtypes]).
 Signature = Tuple[object, Sequence[object]]

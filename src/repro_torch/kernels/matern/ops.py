@@ -1,10 +1,12 @@
-"""Wrapper of the Matérn-5/2 kernel (``csrc/matern.cu``).
+"""Wrappers of the Matérn-5/2 kernels (``csrc/matern.cu``).
 
-:func:`matern52` is the drop-in for :func:`repro_torch.core.gp.matern52` in
-the GP's posterior mean: the ARD scaling happens here, so the kernel stays
-a pure geometry primitive.  For CUDA tensors it launches the kernel (and
-raises if it cannot); for CPU tensors it runs the plain version.  It has no
-backward: training uses the differentiable plain ``core.gp.matern52``.
+:func:`matern52_mean` is the GP's posterior mean at raw query points in one
+launch: the level-0 path of :meth:`repro_torch.core.gp.GaussianProcess.predict`.
+:func:`matern52_scaled` is the kernel matrix for pre-scaled inputs, which
+the posterior variance needs; :func:`matern52` the same matrix with the ARD
+scaling done here.  For CUDA tensors a wrapper launches its kernel (and
+raises if it cannot); for CPU tensors it runs the plain version.  No wrapper
+has a backward: training uses the differentiable plain ``core.gp.matern52``.
 """
 from __future__ import annotations
 
@@ -14,11 +16,26 @@ import torch
 
 from repro_torch.kernels import build
 
-from .ref import matern52_ref
+from .ref import matern52_mean_ref, matern52_ref, tree_width
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {"matern52": (_I, [_P] * 3 + [_I] * 3 + [_F, _P])}
+_SIGNATURES = {
+    "matern52": (_I, [_P] * 3 + [_I] * 3 + [_F, _P]),
+    "matern52_mean": (_I, [_P] * 7 + [_I] * 5 + [_F, _P]),
+}
 LAUNCHES = build.counter("matern52")
+MEAN_LAUNCHES = build.counter("matern52_mean")
+# The mean kernel's shared memory, its summation tree of width * p floats:
+# 48 KiB is what a block may take without opting in to more.
+MEAN_SMEM_BYTES = 48 * 1024
+
+
+def _check_card(tensors, what: str) -> None:
+    for t in tensors:
+        if t.device.type != "cuda" or t.device != tensors[0].device:
+            raise ValueError(f"{what}: all inputs must lie on the same card")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: inputs must be contiguous")
 
 
 def matern52_scaled(a: torch.Tensor, b: torch.Tensor, outputscale: float) -> torch.Tensor:
@@ -27,13 +44,10 @@ def matern52_scaled(a: torch.Tensor, b: torch.Tensor, outputscale: float) -> tor
         raise ValueError(f"want (n, d) x (m, d), got {tuple(a.shape)} x {tuple(b.shape)}")
     if a.device.type == "cpu":
         return matern52_ref(a, b, outputscale)
+    _check_card((a, b), "matern52")
     for t in (a, b):
-        if t.device.type != "cuda" or t.device != a.device:
-            raise ValueError("matern52: both inputs must lie on the same card")
         if t.dtype != torch.float32:
             raise TypeError(f"matern52: want float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError("matern52: inputs must be contiguous")
     n, d = a.shape
     m = b.shape[0]
     out = torch.empty((n, m), dtype=torch.float32, device=a.device)
@@ -44,6 +58,50 @@ def matern52_scaled(a: torch.Tensor, b: torch.Tensor, outputscale: float) -> tor
     )
     build.check_launch(err, "matern52")
     LAUNCHES.add()
+    return out
+
+
+def matern52_mean(
+    x: torch.Tensor,
+    ls: torch.Tensor,
+    x_scaled: torch.Tensor,
+    alpha: torch.Tensor,
+    y_scale: torch.Tensor,
+    y_mean: torch.Tensor,
+    outputscale: float,
+) -> torch.Tensor:
+    """Posterior mean (B, p) at raw points ``x`` (B, d): lengthscales ``ls``
+    (d,), scaled training inputs ``x_scaled`` (n, d), ``alpha`` (n, p),
+    ``y_scale`` and ``y_mean`` (p,).  Row ``i`` depends on ``x[i]`` alone."""
+    args = (x, ls, x_scaled, alpha, y_scale, y_mean)
+    if x.ndim != 2 or x_scaled.ndim != 2 or alpha.ndim != 2:
+        raise ValueError("matern52_mean: want x (B, d), x_scaled (n, d), alpha (n, p)")
+    (B, d), (n, p) = x.shape, alpha.shape
+    want = ((B, d), (d,), (n, d), (n, p), (p,), (p,))
+    got = tuple(tuple(t.shape) for t in args)
+    if got != want:
+        raise ValueError(f"matern52_mean: want shapes {want}, got {got}")
+    for t in args:
+        if t.dtype != torch.float32:
+            raise TypeError(f"matern52_mean: want float32, got {t.dtype}")
+    width = tree_width(n)
+    smem = 4 * width * p
+    if smem > MEAN_SMEM_BYTES:
+        raise ValueError(
+            f"matern52_mean: n = {n} (tree width {width}) x p = {p} needs {smem} bytes "
+            f"of shared memory, more than {MEAN_SMEM_BYTES}"
+        )
+    if x.device.type == "cpu":
+        return matern52_mean_ref(*args, outputscale)
+    _check_card(args, "matern52_mean")
+    out = torch.empty((B, p), dtype=torch.float32, device=x.device)
+    lib = build.LIBRARY.load("matern", _SIGNATURES)
+    err = lib.matern52_mean(
+        *(t.data_ptr() for t in args), out.data_ptr(), B, n, d, p, width,
+        float(outputscale), torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    build.check_launch(err, "matern52_mean")
+    MEAN_LAUNCHES.add()
     return out
 
 

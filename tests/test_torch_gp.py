@@ -24,6 +24,12 @@ from repro_torch.core.gp import (
     neg_log_marginal_likelihood,
 )
 from repro_torch.core.lhs import latin_hypercube, scale_to_bounds
+from repro_torch.kernels.matern import ops as matern_ops
+from repro_torch.kernels.matern.ref import (
+    matern52_mean_ref,
+    matern52_ref,
+    posterior_mean_from_matrix,
+)
 
 CPU = "cpu"
 
@@ -96,6 +102,69 @@ def test_gp_from_arrays_reproduces_reference_predictions():
     )
     with pytest.raises(KeyError, match="alpha"):
         gp_from_arrays({k: v for k, v in fields.items() if k != "alpha"}, device=CPU)
+
+
+def _reference_fields(seed):
+    x, y = _data(80, seed=seed)
+    gj = jax_fit_gp(x, y, steps=30)
+    fields = {
+        "x_train": gj.x_train, "y_train": gj.y_train, "y_mean": gj.y_mean,
+        "y_scale": gj.y_scale, "log_lengthscales": gj.params.log_lengthscales,
+        "log_outputscale": gj.params.log_outputscale, "log_noise": gj.params.log_noise,
+        "chol": gj.chol, "alpha": gj.alpha,
+    }
+    return gj, {k: np.asarray(v) for k, v in fields.items()}
+
+
+@pytest.mark.parametrize("seed,batch", [(3, 12), (7, 1), (11, 8)])
+def test_plain_mean_matches_reference_predict(seed, batch):
+    """The posterior-mean kernel's plain version on the reference's fitted
+    fields against the reference's predict, at the bound of
+    ``test_gp_from_arrays_reproduces_reference_predictions``."""
+    gj, f = _reference_fields(seed)
+    ls = np.exp(f["log_lengthscales"])
+    q = np.random.default_rng(seed + 1).uniform(-200, 200, (batch, 2)).astype(np.float32)
+    t = {k: torch.tensor(v, dtype=torch.float32) for k, v in f.items()}
+    got = matern52_mean_ref(
+        torch.from_numpy(q), torch.from_numpy(ls), t["x_train"] / torch.from_numpy(ls),
+        t["alpha"], t["y_scale"], t["y_mean"], float(np.exp(f["log_outputscale"])),
+    )
+    np.testing.assert_allclose(got.numpy(), np.asarray(gj.predict(jnp.asarray(q))),
+                               rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("batch", [1, 5, 8])
+def test_predict_equals_matrix_and_contraction_bit_for_bit(batch):
+    """``predict`` (the posterior-mean wrapper) has the bits of the matrix
+    kernel followed by the elementwise product, the halving sum and the
+    affine step, which is how it computed the mean before."""
+    _, f = _reference_fields(3)
+    gt = gp_from_arrays(f, device=CPU)
+    q = torch.from_numpy(np.random.default_rng(9).uniform(-200, 200, (batch, 2)).astype(np.float32))
+    ls = torch.exp(gt.params.log_lengthscales)
+    ks = matern52_ref(q / ls, gt.x_train / ls, float(torch.exp(gt.params.log_outputscale)))
+    want = posterior_mean_from_matrix(ks, gt.alpha, gt.y_scale, gt.y_mean)
+    assert torch.equal(gt.predict(q), want)
+    assert torch.equal(gt.predict(q, return_var=True)[0], want)
+
+
+def test_predict_goes_through_the_mean_wrapper(monkeypatch):
+    """Without ``return_var`` the mean comes from ``matern52_mean`` alone;
+    the matrix wrapper is called only for the variance."""
+    _, f = _reference_fields(3)
+    gt = gp_from_arrays(f, device=CPU)
+    calls = []
+    for name in ("matern52_mean", "matern52_scaled"):
+        fn = getattr(matern_ops, name)
+        monkeypatch.setattr(matern_ops, name,
+                            lambda *a, _fn=fn, _n=name: (calls.append(_n), _fn(*a))[1])
+    q = torch.zeros((3, 2))
+    gt.batch_call(q)
+    gt(q[0])
+    assert calls == ["matern52_mean", "matern52_mean"]
+    calls.clear()
+    gt.predict(q, return_var=True)
+    assert calls == ["matern52_mean", "matern52_scaled"]
 
 
 def test_batch_call_rows_bit_identical():

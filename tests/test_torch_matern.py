@@ -1,9 +1,11 @@
-"""The port's Matérn-5/2 kernel matrix against the JAX reference.
+"""The port's Matérn-5/2 kernels against the JAX reference.
 
-On the CPU the wrapper runs the plain version (direct differences, one row
-at a time); it is held at atol 5e-6, the bound of the reference's own
-kernel test, against both the reference's jnp ``matern52`` and its Pallas
-kernel in interpret mode, on the same numpy inputs.
+On the CPU the wrappers run the plain versions (direct differences, one row
+at a time).  The matrix is held at atol 5e-6, the bound of the reference's
+own kernel test, against both the reference's jnp ``matern52`` and its
+Pallas kernel in interpret mode, on the same numpy inputs.  The posterior
+mean is held bit for bit against the matrix followed by the contraction,
+and its wrapper's checks, which run before any launch, are tested here.
 """
 import jax  # noqa: F401  (both frameworks in one process, JAX on the CPU)
 import jax.numpy as jnp
@@ -16,7 +18,13 @@ from repro.core.gp import matern52 as jax_matern
 from repro.kernels.matern.ops import matern52 as pallas_matern
 from repro_torch.core.gp import GPParams, matern52 as port_matern_autograd
 from repro_torch.kernels.matern import ops
-from repro_torch.kernels.matern.ref import matern52_ref
+from repro_torch.kernels.matern.ref import (
+    fixed_order_sum,
+    matern52_mean_ref,
+    matern52_ref,
+    posterior_mean_from_matrix,
+    tree_width,
+)
 
 SHAPES = [(16, 16, 2), (64, 128, 2), (130, 70, 5), (17, 33, 11), (512, 512, 2)]
 
@@ -80,6 +88,107 @@ def test_wrapper_rejects_bad_shapes():
         ops.matern52_scaled(a[0], torch.zeros((5, 2)), 1.0)
 
 
+MEAN_SHAPES = [(8, 512, 2, 4), (1, 512, 2, 4), (5, 300, 3, 4), (3, 1, 2, 2), (4, 70, 5, 1),
+               (2, 20, 2, 40)]
+
+
+def _mean_case(B, n, d, p, seed=0):
+    rng = np.random.default_rng(seed + B * n + d * p)
+    ls = (100.0 * np.exp(0.3 * rng.normal(size=d))).astype(np.float32)
+    x = rng.uniform(-200, 200, (B, d)).astype(np.float32)
+    xs = (rng.uniform(-200, 200, (n, d)) / ls).astype(np.float32)
+    alpha = rng.normal(size=(n, p)).astype(np.float32)
+    y_scale = np.exp(rng.normal(size=p)).astype(np.float32)
+    y_mean = rng.normal(size=p).astype(np.float32)
+    return [torch.from_numpy(v) for v in (x, ls, xs, alpha, y_scale, y_mean)]
+
+
+@pytest.mark.parametrize("B,n,d,p", MEAN_SHAPES)
+def test_mean_wrapper_equals_matrix_and_contraction(B, n, d, p):
+    """On the CPU the mean wrapper has the bits of the matrix followed by
+    the elementwise product, the halving sum and the affine step."""
+    x, ls, xs, alpha, ys, ym = _mean_case(B, n, d, p)
+    got = ops.matern52_mean(x, ls, xs, alpha, ys, ym, 1.3)
+    ks = ops.matern52_scaled((x / ls).contiguous(), xs, 1.3)
+    assert got.shape == (B, p) and got.dtype == torch.float32
+    assert torch.equal(got, posterior_mean_from_matrix(ks, alpha, ys, ym))
+
+
+@pytest.mark.parametrize("B,n,d,p", MEAN_SHAPES[:3])
+def test_mean_rows_do_not_depend_on_row_count(B, n, d, p):
+    """B = 1 rows equal B = 8 rows bit for bit (the level-0 batch contract)."""
+    x, *rest = _mean_case(8, n, d, p)
+    full = ops.matern52_mean(x, *rest, 1.3)
+    for i in range(8):
+        assert torch.equal(ops.matern52_mean(x[i : i + 1], *rest, 1.3)[0], full[i])
+
+
+def test_mean_against_matrix_of_reference():
+    """The mean from the reference's matrix (expanded form) and the plain
+    mean agree within the Matérn bound carried through the sum."""
+    x, ls, xs, alpha, ys, ym = _mean_case(6, 128, 2, 4)
+    jp = JaxParams(jnp.zeros(2), jnp.asarray(np.log(1.3), jnp.float32), jnp.zeros(()))
+    ks = np.asarray(jax_matern(jnp.asarray((x / ls).numpy()), jnp.asarray(xs.numpy()), jp))
+    want = (ks[:, :, None] * alpha.numpy()[None]).sum(1) * ys.numpy() + ym.numpy()
+    got = matern52_mean_ref(x, ls, xs, alpha, ys, ym, 1.3).numpy()
+    bound = 5e-6 * np.abs(alpha.numpy()).sum(0) * ys.numpy() + 1e-5 * np.abs(want)
+    assert np.all(np.abs(got - want) <= bound)
+
+
+@pytest.mark.parametrize("n,want", [(0, 1), (1, 1), (2, 2), (3, 4), (512, 512), (513, 1024)])
+def test_tree_width(n, want):
+    assert tree_width(n) == want
+
+
+def test_fixed_order_sum_is_the_halving_order():
+    x = torch.tensor([1e8, 1.0, -1e8, 1.0, 3.0], dtype=torch.float32)
+    # ((1e8 + 3) + (-1e8)) + (1 + 1): the halving tree over 8 padded terms.
+    want = ((x[0] + x[4]) + (x[2] + 0.0)) + ((x[1] + 0.0) + (x[3] + 0.0))
+    assert torch.equal(fixed_order_sum(x, 0), want)
+    y = torch.stack([x, 2 * x, x.flip(0)], dim=1)
+    assert torch.equal(fixed_order_sum(y, 0)[0], want)
+
+
+@pytest.mark.parametrize("case", ["x 1-d", "ls shape", "xs width", "alpha rows",
+                                  "y_scale length", "y_mean length"])
+def test_mean_wrapper_rejects_bad_shapes(case):
+    args = _mean_case(4, 16, 2, 3)
+    i, bad = {
+        "x 1-d": (0, torch.zeros(2)),
+        "ls shape": (1, torch.ones(3)),
+        "xs width": (2, torch.zeros((16, 3))),
+        "alpha rows": (3, torch.zeros((15, 3))),
+        "y_scale length": (4, torch.ones(2)),
+        "y_mean length": (5, torch.zeros(4)),
+    }[case]
+    args[i] = bad
+    with pytest.raises(ValueError, match="matern52_mean: want"):
+        ops.matern52_mean(*args, 1.0)
+
+
+@pytest.mark.parametrize("i", range(6))
+def test_mean_wrapper_rejects_other_dtypes(i):
+    args = _mean_case(4, 16, 2, 3)
+    args[i] = args[i].double()
+    with pytest.raises(TypeError, match="float32"):
+        ops.matern52_mean(*args, 1.0)
+
+
+@pytest.mark.parametrize("n,p,fits", [(512, 4, True), (2048, 6, True), (2048, 7, False),
+                                      (3000, 3, True), (3000, 4, False), (12288, 1, False),
+                                      (8192, 1, True)])
+def test_mean_wrapper_refuses_trees_over_the_shared_memory_limit(n, p, fits):
+    """The tree (width x p floats) must fit the block's shared memory; the
+    wrapper raises before any launch, on any device."""
+    args = _mean_case(1, n, 2, p)
+    assert (4 * tree_width(n) * p <= ops.MEAN_SMEM_BYTES) == fits
+    if fits:
+        assert ops.matern52_mean(*args, 1.0).shape == (1, p)
+    else:
+        with pytest.raises(ValueError, match="shared memory"):
+            ops.matern52_mean(*args, 1.0)
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
@@ -98,3 +207,30 @@ def test_matern_kernel_matches_plain_on_card(card, n, m, d):
     assert ops.LAUNCHES.value == before + 1
     want = matern52_ref(a, b, 1.3)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=0, atol=5e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,n,d,p", MEAN_SHAPES)
+def test_mean_kernel_matches_plain_on_card(card, B, n, d, p):
+    """The mean kernel against its plain version within the Matérn bound
+    carried through the sum, and bit for bit against the matrix kernel and
+    the contraction on the card."""
+    args = [t.to(card) for t in _mean_case(B, n, d, p)]
+    x, ls, xs, alpha, ys, ym = args
+    before = ops.MEAN_LAUNCHES.value
+    got = ops.matern52_mean(*args, 1.3)
+    assert ops.MEAN_LAUNCHES.value == before + 1
+    want = matern52_mean_ref(*args, 1.3)
+    bound = 5e-6 * alpha.abs().sum(0) * ys
+    assert bool(((got - want).abs() <= bound).all())
+    ks = ops.matern52_scaled((x / ls).contiguous(), xs, 1.3)
+    assert torch.equal(got, posterior_mean_from_matrix(ks, alpha, ys, ym))
+
+
+def test_matern_source_builds_without_fma_contraction():
+    """The mean kernel's bits are those of separately rounded products and
+    sums, so its source is built as the SWE source is: no FMA contraction."""
+    from repro_torch.kernels import build
+
+    assert "--fmad=false" in build.KernelLibrary.flags("matern")
+    assert "--fmad=false" in build.KernelLibrary.flags("swe_flux")

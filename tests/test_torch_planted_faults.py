@@ -52,14 +52,45 @@ def test_flash_faults_lie_in_the_tensor_core_kernel(name):
 
 
 def test_swe_fault_lies_in_the_fused_step_row_loop():
-    """The SWE fault edits the row index of the fused step's halo-tile loads."""
+    """The SWE fault edits the row index of the halo-tile loads, which the
+    fused step and the y sweep share."""
     source, old, _ = FAULTS["swe_halo_row_own_row"]
     loads = _span(_source(source), "void load_halo_cell(", "s.cell[r][c] = ")
     assert old in loads
 
 
+def test_sweep_fault_lies_in_the_x_sweep_halo_load():
+    """The sweep fault edits the x sweep's load of the tile's edge columns,
+    inside the one-direction tile kernel and not in the fused step."""
+    source, old, _ = FAULTS["sweep_x_halo_own_column"]
+    text = _source(source)
+    sweep = _span(text, "__global__ void __launch_bounds__(kTileW * TY, 2048 / (kTileW * TY)) "
+                  "swe_sweep_kernel(", "dim3 tile_grid(")
+    assert old in _span(sweep, "if (kX) {", "} else if (r < 2)")
+    fused = _span(text, "swe_fused_step_kernel(", "swe_sweep_kernel(")
+    assert old not in fused
+
+
+def test_matern_fault_lies_in_the_mean_kernel_tree():
+    """The Matérn fault edits the posterior-mean kernel's halving loop."""
+    source, old, new = FAULTS["mean_tree_mirror_order"]
+    kernel = _span(_source(source), "matern52_mean_kernel(", "}  // namespace")
+    loop = _span(kernel, "// The halving levels", "// The last levels")
+    assert source == "matern.cu" and old in loop and old != new
+
+
+def test_sweep_is_the_tile_kernel_in_one_direction():
+    """The per-cell sweep is gone: the sweep kernel is a template on the
+    direction and the tile height, over the fused step's shared tile."""
+    text = _source("swe_flux.cu")
+    assert "template <bool kX, int TY>\n__global__" in text
+    sweep = _span(text, "swe_sweep_kernel(\n", "dim3 tile_grid(")
+    assert "__shared__ StepTile<TY> s;" in sweep and "load_halo_cell(" in sweep
+    assert "int axis, float g" not in sweep
+
+
 def test_every_kernel_source_has_a_fault():
-    assert {f[0] for f in FAULTS.values()} == {"flash_attention.cu", "swe_flux.cu"}
+    assert {f[0] for f in FAULTS.values()} == {"flash_attention.cu", "swe_flux.cu", "matern.cu"}
 
 
 @pytest.mark.parametrize("head_dim", ops.HEAD_DIMS)
