@@ -25,17 +25,27 @@ Phases (any failure exits non-zero; there is no CPU path):
    check lake-at-rest through the kernels, and time kernel and plain
    version with CUDA events, beside the launch floor (a 1-element
    ``zero_()``), and a level-0 ``batch_call`` at B = 8 by the host's clock
-   before and after the posterior-mean kernel; then build each of
-   ``PLANTED_FAULTS`` (an edit of a kernel source) and fail unless the
-   checks of that source reject every one;
-3. check batch invariance: B = 1 rows against B = 8 rows, bit for bit, for
+   before and after the posterior-mean kernel; then build or load each of
+   ``PLANTED_FAULTS`` (an edit of a kernel source or of ``graphs.py``) and
+   fail unless the checks of that source reject every one;
+3. check the graph cache (``graph_checks``: a result survives the next
+   call, a call answers its own input, the caller's input is untouched);
+   check batch invariance: B = 1 rows against B = 8 rows, bit for bit, for
    the coarse and fine batched forwards and for ``GaussianProcess.batch_call``,
    and that one ``batch_call`` launches one CUDA kernel (``torch.profiler``);
+   at both levels and B = 1, 3 (padded to 4) and 8, hold the batched
+   solver's and forward's graph replays bit for bit against their eager
+   loops (series, final state, observables), print the graph keys, the
+   launches recorded per graph and the device operations of one B = 8
+   replay, and time the B = 8 forward eager against replay;
 4. drive the MLDA main path, ``repro_torch.launch.tsunami.run``, at the
    ``paper`` preset's widths (96x96 and 288x288 grids, 512 LHS points, 200
    Adam steps, 5 chains through the balancer), with the launch counters set
    to 0 just before; every kernel of the path must launch (for Matérn, the
-   posterior-mean route); check the outputs against the plain path;
+   posterior-mean route), levels 1 and 2 must evaluate through graph
+   replays (``graph_replays`` per level above 0) and most fused-step
+   launches must come from replays; check the outputs against the plain
+   path;
 5. the LM slice's prefill: qwen2-0.5b at full width in bf16 (seeded random
    weights) on one 32768-token prompt, counters at 0 just before; the
    tensor-core flash kernel must launch once per layer, the fp32 one never; the last position's logits must be
@@ -48,7 +58,14 @@ Phases (any failure exits non-zero; there is no CPU path):
    prefill, must agree wherever the reference's top-2 logit gap is at least
    twice a control difference measured without the kernel (the chunked
    prefill against the serving prefill), which also bounds the kernel
-   prefill's own difference and the difference between the modes;
+   prefill's own difference and the difference between the modes; the
+   servers decode through CUDA graphs, so their tokens must equal the eager
+   steps' argmaxes exactly and the graphs' logits the eager logits bit for
+   bit (teacher-forced on the served tokens; should cuBLAS change bits
+   under capture, the graphs are held to the control difference and the
+   top-2 rule instead); a decode step at B = 1 and B = 8 is timed eager
+   against replay, and the profiler reads the device's busy share and the
+   largest device operations of a B = 1 step, eager and replayed;
 7. print the ``kernels`` JSON line, then the result line.
 """
 from __future__ import annotations
@@ -58,6 +75,7 @@ import math
 import subprocess
 import sys
 import time
+from collections import Counter
 from dataclasses import replace
 from functools import partial
 from pathlib import Path
@@ -115,10 +133,11 @@ FLASH_BF16_ATOL = 3e-2
 # limits are two bf16 steps and 1e-4.
 FLASH_BF16_ROW_RTOL = 2.0**-6
 FLASH_FP32_ROW_RTOL = 1e-4
-# Planted faults: each is one textual edit of a kernel source in csrc/,
-# built into its own library under build/planted/; the checks of that
-# source's kernels (flash_checks, swe_step_checks, matern_checks) must
-# reject every one.
+# Planted faults: each is one textual edit of a source of the port, a
+# kernel in csrc/ (built into its own library under build/planted/) or the
+# graph module graphs.py (loaded from an edited copy there); the checks of
+# that source (flash_checks, swe_step_checks, matern_checks, graph_checks)
+# must reject every one.
 # A rewrite of a kernel rewrites its edits with it.
 PLANTED_FAULTS = {
     # The diagonal kv tile left out of every query tile past row 8192 in the
@@ -161,6 +180,20 @@ PLANTED_FAULTS = {
         "s[q * width + j] += s[q * width + j + half];",
         "s[q * width + j] += s[q * width + 2 * half - 1 - j];",
     ),
+    # A graph call replays without copying the caller's tensors into the
+    # static inputs: every call after the capture answers the capture's input.
+    "graph_input_copy_dropped": (
+        "graphs.py",
+        "for dst, src in zip(self.inputs, inputs):\n            dst.copy_(src)\n",
+        "for dst, src in zip(self.inputs, inputs):\n            pass\n",
+    ),
+    # A graph call returns the static outputs themselves: the next replay
+    # overwrites a result the caller still holds.
+    "graph_outputs_not_cloned": (
+        "graphs.py",
+        "return tree_unflatten([x.clone() for x in self._outputs], self._spec)",
+        "return tree_unflatten(list(self._outputs), self._spec)",
+    ),
 }
 FLASH_CASES = [
     (2, 4, 2, 128, 64, True, None),
@@ -190,6 +223,13 @@ PREFILL_DIFF_FACTOR = 2.0
 MLDA_KERNELS = {"swe_fused_step": "swe_fused_step", "swe_sweep": "swe_sweep",
                 "matern52": "matern52_mean"}
 KERNEL_ORDER = (*MLDA_KERNELS, "flash_attention")
+
+
+def fault_source(source: str) -> Path:
+    """The file a planted fault edits: a kernel source under csrc/, or a
+    module of the port's package."""
+    pkg = SRC / "repro_torch"
+    return pkg / "csrc" / source if source.endswith(".cu") else pkg / source
 
 
 def fail(msg: str) -> None:
@@ -389,6 +429,45 @@ def matern_checks(torch):
     return out, err
 
 
+def _solve_leaves(result):
+    series, final = result
+    return [series, *final]
+
+
+def unequal(xs, ys) -> int:
+    """Unequal values between two lists of tensors of equal shapes."""
+    return sum(int((x != y).sum()) for x, y in zip(xs, ys))
+
+
+def graph_checks(torch, sc):
+    """The graph cache of the batched solver of scenario ``sc`` (whichever
+    ``StaticGraph`` ``repro_torch.swe.solver`` holds) against its eager
+    solve, as ``(label, measure, error, limit)``.
+
+    Two calls at B = 3 (padded to 4) with different displacements, then
+    the eager solve of each: the first result must be unchanged by the
+    second call (no result aliases a static buffer), the second must be
+    the second input's (the input was copied in), and the caller's tensors
+    must be unchanged.  Series and final state, bit for bit."""
+    from repro_torch.swe.solver import make_solver
+
+    solver = make_solver(sc.cfg, sc.bathymetry(), sc.probe_indices(), batch=True)
+    gen = torch.Generator().manual_seed(6)
+    thetas = (torch.rand((2, 3, 2), generator=gen) * 400.0 - 200.0).to(sc.torch_device)
+    etas = [torch.stack([sc.displacement(t) for t in th]) for th in thetas]
+    kept = [e.clone() for e in etas]
+    first = _solve_leaves(solver(etas[0]))
+    second = _solve_leaves(solver(etas[1]))
+    want = [_solve_leaves(solver.eager(e)) for e in etas]
+    label = f"graph cache {sc.ny}x{sc.nx} B=3"
+    return [
+        (f"{label}: first result after a second call vs eager", "unequal values",
+         unequal(first, want[0]), 1),
+        (f"{label}: second result vs eager", "unequal values", unequal(second, want[1]), 1),
+        (f"{label}: caller's inputs after both calls", "unequal values", unequal(etas, kept), 1),
+    ]
+
+
 def _level0_gp(torch):
     """A level-0 GP as the main path fits it (512 LHS points in the prior
     box, four smooth outputs), with 20 Adam steps; on the card."""
@@ -430,9 +509,9 @@ def host_time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     return total / iters * 1e3
 
 
-def cuda_kernels_of(torch, fn):
-    """The names of the CUDA kernels that one call of ``fn`` launches, from
-    ``torch.profiler`` (copies and memsets left out)."""
+def device_ops_of(torch, fn):
+    """The names of what one call of ``fn`` runs on the card (kernels,
+    copies and memsets), from ``torch.profiler``."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -440,9 +519,12 @@ def cuda_kernels_of(torch, fn):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and not e.name.startswith(("Memcpy", "Memset"))]
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def cuda_kernels_of(torch, fn):
+    """The CUDA kernels among ``device_ops_of``: copies and memsets left out."""
+    return [n for n in device_ops_of(torch, fn) if not n.startswith(("Memcpy", "Memset"))]
 
 
 def phase_kernels(torch, rows):
@@ -721,39 +803,52 @@ def phase_flash(torch, rows):
 
 
 def phase_planted_faults(torch) -> None:
-    """Build each of ``PLANTED_FAULTS`` from an edited copy of its source
-    under build/planted/ and run the checks of that source's kernels on it:
-    each fault must fail one, or the checks are too weak to trust."""
+    """Build (a kernel source) or load (``graphs.py``) each of
+    ``PLANTED_FAULTS`` from an edited copy of its source under
+    build/planted/ and run the checks of that source on it: each fault must
+    fail one, or the checks are too weak to trust."""
     from concurrent.futures import ThreadPoolExecutor
 
+    import importlib.util
+
     from repro_torch.kernels import build
+    from repro_torch.swe import TohokuScenario, solver
 
     checks_of = {
         "flash_attention.cu": lambda: flash_checks(torch)[0],
         "swe_flux.cu": lambda: swe_step_checks(
             torch, _swe_thetas(torch, torch.Generator().manual_seed(0)))[0],
         "matern.cu": lambda: matern_checks(torch)[0],
+        "graphs.py": lambda: graph_checks(torch, TohokuScenario(nx=96, ny=96)),
     }
-    libs = {}
+    libs, modules = {}, {}
     for name, (source, old, new) in PLANTED_FAULTS.items():
-        src = (build.CSRC / source).read_text()
+        src = fault_source(source).read_text()
         if src.count(old) != 1:
             fail(f"planted fault {name}: its edit does not match {source} exactly once")
         d = REPO / "build" / "planted" / name
         d.mkdir(parents=True, exist_ok=True)
         (d / source).write_text(src.replace(old, new))
-        libs[name] = (source, build.KernelLibrary(d / "kernels", csrc=d))
+        if source.endswith(".cu"):
+            libs[name] = (source, build.KernelLibrary(d / "kernels", csrc=d))
+        else:
+            spec = importlib.util.spec_from_file_location(f"planted_{name}", d / source)
+            modules[name] = (source, importlib.util.module_from_spec(spec))
+            spec.loader.exec_module(modules[name][1])
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(lambda sl: sl[1].build([Path(sl[0]).stem]), libs.values()))
     print(f"[2] built {len(libs)} planted faults in {time.perf_counter() - t0:.1f}s")
-    committed = build.LIBRARY
-    for name, (source, lib) in libs.items():
-        build.LIBRARY = lib
+    committed_lib, committed_graph = build.LIBRARY, solver.StaticGraph
+    for name, (source, planted) in {**libs, **modules}.items():
+        if name in libs:
+            build.LIBRARY = planted
+        else:
+            solver.StaticGraph = planted.StaticGraph
         try:
             checks = checks_of[source]()
         finally:
-            build.LIBRARY = committed
+            build.LIBRARY, solver.StaticGraph = committed_lib, committed_graph
         failed = [c for c in checks if not c[2] < c[3]]
         for label, measure, err, limit in checks:
             print(f"[2] planted fault {name}: {label}: {measure} {err:.3e} (limit {limit:.3e})"
@@ -768,6 +863,52 @@ def phase_planted_faults(torch) -> None:
 # ---------------------------------------------------------------------------
 # phase 3: batch invariance
 # ---------------------------------------------------------------------------
+def host_times_in_turns(torch, fns, iters: int):
+    """``host_time_ms`` of each of ``fns`` ({label: fn}), in the turns a, b,
+    b, a (two labels); the mean of the two turns of each, and every turn."""
+    (a, fa), (b, fb) = fns.items()
+    runs = {a: [], b: []}
+    for label, fn in ((a, fa), (b, fb), (b, fb), (a, fa)):
+        runs[label].append(host_time_ms(torch, fn, iters))
+    return {k: sum(v) / len(v) for k, v in runs.items()}, runs
+
+
+def phase_graph_replay(torch, sc, thetas, level: int):
+    """At one MLDA level: the batched solver's and the batched forward's
+    graph replays against their eager loops, bit for bit, at B = 1, 3
+    (padded to 4) and 8; their keys and nodes; the B = 8 forward's host
+    wall, eager against replay."""
+    from repro_torch.swe.solver import make_solver
+
+    solver = make_solver(sc.cfg, sc.bathymetry(), sc.probe_indices(), batch=True)
+    fb = sc.build_batch_forward()
+    for B in (1, 3, 8):
+        etas = torch.stack([sc.displacement(t) for t in thetas[:B]])
+        n_series = unequal(_solve_leaves(solver(etas)), _solve_leaves(solver.eager(etas)))
+        n_obs = unequal([fb(thetas[:B])], [fb.eager(thetas[:B])])
+        print(f"[3] level {level} {sc.ny}x{sc.nx} B={B}: graph replay vs eager loop, unequal "
+              f"values: series + final state {n_series}, observables {n_obs}")
+        if n_series or n_obs:
+            fail(f"level {level} B={B}: graph replay differs from the eager loop")
+    for label, ex in (("solve", solver.executables), ("forward", fb.executables)):
+        nodes = {key: sorted(g.launches.items()) for key, per in ex.items() for g in per.values()}
+        print(f"[3] level {level} {label} graphs: keys {sorted(ex)}; the port's kernel "
+              f"launches recorded per graph {nodes}")
+    ops = device_ops_of(torch, lambda: fb(thetas))
+    print(f"[3] level {level} B=8 forward, one call: {len(ops)} device operations under the "
+          f"profiler ({sum(n.startswith('Memcpy') for n in ops)} copies, "
+          f"{sum(n.startswith('Memset') for n in ops)} memsets)"
+          if ops else f"[3] level {level} B=8 forward: device operations not measured "
+          "(the profiler saw none)")
+    walls, runs = host_times_in_turns(
+        torch, {"eager": lambda: fb.eager(thetas), "replay": lambda: fb(thetas)}, 5)
+    print(f"[3] level {level} B=8 forward wall (host clock, ending in synchronize, mean of "
+          f"2 x 5 calls in turns): eager {walls['eager']:.3f} ms, replay "
+          f"{walls['replay']:.3f} ms; runs "
+          + ", ".join(f"{k} " + "/".join(f"{x:.3f}" for x in v) for k, v in runs.items()))
+    return walls
+
+
 def phase_batch_invariance(torch, w):
     import numpy as np
 
@@ -776,6 +917,11 @@ def phase_batch_invariance(torch, w):
 
     rng = np.random.default_rng(3)
     thetas = torch.as_tensor(rng.uniform(-200, 200, (8, 2)), dtype=torch.float32).cuda()
+    for label, measure, err, limit in graph_checks(torch, TohokuScenario(nx=96, ny=96)):
+        print(f"[3] {label}: {measure} {err} (limit {limit})")
+        if not err < limit:
+            fail(f"{label}: {measure} {err} >= {limit}")
+    walls = {}
     for level, (nx, ny) in ((1, w.coarse_grid), (2, w.fine_grid)):
         sc = TohokuScenario(nx=nx, ny=ny, t_end=w.t_end_s)
         fb = sc.build_batch_forward()
@@ -793,10 +939,11 @@ def phase_batch_invariance(torch, w):
             fail(f"level {level}: non-finite observables")
         d_single = float((single - full[:2]).abs().max())
         print(f"[3] level {level} {nx}x{ny}: B=1 rows == B=8 rows bit for bit; "
-              f"B=8 solve {t_batch * 1e3:.1f} ms wall; sweep-kernel single vs "
-              f"fused batched max abs diff {d_single:.3e}")
+              f"first B=8 call (eager warm-up, capture, replay) {t_batch * 1e3:.1f} ms wall; "
+              f"sweep-kernel single vs fused batched max abs diff {d_single:.3e}")
         if not d_single < OBS_ATOL:
             fail(f"level {level}: single vs batched observables differ by {d_single}")
+        walls[level] = phase_graph_replay(torch, sc, thetas, level)
     gp = _level0_gp(torch)
     before = matern_ops.MEAN_LAUNCHES.value
     full = gp.batch_call(thetas)
@@ -815,6 +962,7 @@ def phase_batch_invariance(torch, w):
           f"contraction): {len(old)}")
     if len(after) != 1:
         fail(f"one level-0 batch_call launched {len(after)} CUDA kernels, want 1: {after}")
+    return walls
 
 
 # ---------------------------------------------------------------------------
@@ -841,11 +989,27 @@ def phase_main_path(torch, w, rows):
     wall = time.perf_counter() - t0
     launches = {name: c.value for name, c in build.COUNTERS.items()}
     print(f"[4] main path wall {wall:.1f}s; stage walls {res['walls']}; "
-          f"kernel launches {launches}")
+          f"kernel launches and graph replays {launches}")
     for name, counter in MLDA_KERNELS.items():
         rows[name]["launches"] = launches.get(counter, 0)
         if rows[name]["launches"] <= 0:
             fail(f"kernel {counter} was not launched by the main path")
+    # Levels 1 and 2 evaluate through graph replays of their batched forwards.
+    h = res["hierarchy"]
+    for level, (nx, ny), fb in ((1, w.coarse_grid, h["forward_coarse_batch"]),
+                                (2, w.fine_grid, h["forward_fine_batch"])):
+        n = build.counter(f"graph_replays forward {ny}x{nx}").value
+        graphs = {key: len(per) for key, per in sorted(fb.executables.items())}
+        print(f"[4] level {level} {nx}x{ny}: graph_replays {n}; graphs captured per key "
+              f"(one per calling thread) {graphs}, {sum(graphs.values())} in all")
+        if n <= 0:
+            fail(f"level {level}: the main path replayed no graph of its batched forward")
+    fused = build.counter("swe_fused_step")
+    print(f"[4] swe_fused_step launches {fused.value}: {fused.replayed} from graph replays, "
+          f"{fused.value - fused.replayed} eager (the warm-up run before each capture)")
+    rows["swe_fused_step"]["launches_from_replays"] = fused.replayed
+    if not fused.replayed > fused.value / 2:
+        fail("most fused-step launches of the main path did not come from graph replays")
     rows["matern52"]["matrix_launches"] = launches.get("matern52", 0)
     if res["failures"]:
         fail(f"chains failed: {res['failures']}")
@@ -859,12 +1023,16 @@ def phase_main_path(torch, w, rows):
     print(f"[4] balancer: requests {s['n_requests']}, idle mean "
           f"{s['mean_idle_s'] * 1e3:.3f} ms, p99 {s['p99_idle_s'] * 1e3:.3f} ms; "
           f"batch histogram {s['batch_histogram']}")
+    sampling = res["walls"]["sampling_s"]
+    print(f"[4] fine samples/s {w.n_chains * N_FINE_SAMPLES / sampling:.2f}; server busy "
+          f"seconds over the {sampling:.1f} s of sampling (share): "
+          + ", ".join(f"{name} {busy:.2f} ({busy / sampling:.1%})"
+                      for name, busy in s["per_server_uptime"].items()))
     for row in res["levels"]:
         print(f"[4] level {row['level']}: evals {row['n_evals']}, acceptance "
               f"{row['acceptance_rate']:.3f}, mean eval {row['mean_eval_s'] * 1e3:.2f} ms")
     # The main path's fine observables at the truth (sweep kernel) against
     # the plain PyTorch step on the same card.
-    h = res["hierarchy"]
     fwd = h["forward_fine"]
     theta = torch.zeros(2, device=fwd.device)
     got = fwd(theta)
@@ -975,7 +1143,7 @@ def phase_lm_serving(torch, cfg, params):
 
     from repro_torch.models import build_model
     from repro_torch.models.lm import decode_step, pool_decode_state, slot_insert
-    from repro_torch.runtime.serve_loop import ServingEngine, serving_metrics
+    from repro_torch.runtime.serve_loop import DecodeGraph, ServingEngine, serving_metrics
 
     name = cfg.arch_id
     rng = np.random.default_rng(0)
@@ -1042,27 +1210,77 @@ def phase_lm_serving(torch, cfg, params):
                 fail(f"request {i}: first token diverges at top-2 gap {gap} >= 2 delta")
             n_first += 1
 
-    # Across modes.  delta_mode is the largest logit difference between the
-    # B = 1 decode step (generation) and the 8-slot pooled step (continuous)
-    # on the same teacher-forced tokens.  Both run the same code on the same
-    # weights, so delta_mode must stay below the control delta_first.
-    delta_mode, ref_logits, replay_mismatch = 0.0, [], 0
-    for (p, _), g in zip(work, tokens["generation"]):
+    # Through the graphs against the eager steps, teacher-forced on the
+    # tokens the servers emitted.  Generation mode's tokens come from the
+    # B = 1 graph (prefill and decode), continuous mode's from the 8-slot
+    # pool graph after the B = 1 prefill graph: on the same tokens the
+    # graphs' logits must equal the eager steps' bit for bit, and the
+    # emitted tokens the eager argmaxes exactly.  delta_mode is the largest
+    # logit difference between the eager B = 1 step and the eager 8-slot
+    # step (every slot holding the request) while the two modes' tokens
+    # agree.  Both run the same code on the same weights, so delta_mode
+    # must stay below the control delta_first.
+    g1 = DecodeGraph(bundle, params, 1, SERVE_CACHE_LEN, name="check B=1")
+    g8 = DecodeGraph(bundle, params, SERVE_SLOTS, SERVE_CACHE_LEN, name=f"check B={SERVE_SLOTS}")
+    delta_mode, ref_logits = 0.0, []
+    graph_unequal, graph_diff, n_logits = 0, 0.0, 0
+    mismatch = {"generation": [], "continuous": []}
+
+    def versus(eager, graph):
+        nonlocal graph_unequal, graph_diff, n_logits
+        graph_unequal += unequal([graph], [eager])
+        graph_diff = max(graph_diff, float((graph - eager).abs().max()))
+        n_logits += eager.numel()
+
+    for i, ((p, _), g, c) in enumerate(zip(work, tokens["generation"], tokens["continuous"])):
+        prompt = torch.as_tensor(p).cuda()
+        ls, st1 = bundle.prefill_state(params, prompt, SERVE_CACHE_LEN)
+        ids, lg = g1.prefill(prompt)
+        versus(ls, lg)
+        for mode, toks in (("generation", g), ("continuous", c)):
+            if int(toks[0]) != int(ls[0, -1].argmax()):
+                mismatch[mode].append((i, 0, ls[0, -1]))
+        pool = pool_decode_state(cfg, SERVE_SLOTS, SERVE_CACHE_LEN, "cuda")
+        g8.reset()
+        for slot in range(SERVE_SLOTS):
+            pool = slot_insert(pool, st1, slot)
+            slot_insert(g8.state, st1, slot)
         steps = []
-        if len(g) > 1:
-            _, st1 = bundle.prefill_state(params, torch.as_tensor(p).cuda(), SERVE_CACHE_LEN)
-            pool = pool_decode_state(cfg, SERVE_SLOTS, SERVE_CACHE_LEN, "cuda")
-            for slot in range(SERVE_SLOTS):
-                pool = slot_insert(pool, st1, slot)
-            for j in range(1, len(g)):
-                l1, st1 = decode_step(params, cfg, st1, torch.full((1, 1), int(g[j - 1]),
-                                                                   device="cuda"))
-                l8, pool = decode_step(params, cfg, pool, torch.full((SERVE_SLOTS, 1),
-                                                                     int(g[j - 1]), device="cuda"))
-                delta_mode = max(delta_mode, float((l1[0, -1] - l8[0, -1]).abs().max()))
+        for j in range(1, max(len(g), len(c))):
+            if j < len(g):
+                feed = torch.full((1, 1), int(g[j - 1]), device="cuda")
+                l1, st1 = decode_step(params, cfg, st1, feed)
+                versus(l1, g1(feed)[1])
                 steps.append(l1[0, -1])
-                replay_mismatch += int(int(l1[0, -1].argmax()) != int(g[j]))
+                if int(l1[0, -1].argmax()) != int(g[j]):
+                    mismatch["generation"].append((i, j, l1[0, -1]))
+            if j < len(c):
+                feed = torch.full((SERVE_SLOTS, 1), int(c[j - 1]), device="cuda")
+                l8, pool = decode_step(params, cfg, pool, feed)
+                versus(l8, g8(feed)[1])
+                if int(l8[0, -1].argmax()) != int(c[j]):
+                    mismatch["continuous"].append((i, j, l8[0, -1]))
+                if j < len(g) and np.array_equal(g[:j], c[:j]):
+                    delta_mode = max(delta_mode, float((l1[0, -1] - l8[0, -1]).abs().max()))
         ref_logits.append(steps)
+    print(f"[6] graphs vs eager steps, teacher-forced on the served tokens: {graph_unequal} of "
+          f"{n_logits} logits unequal (max abs diff {graph_diff:.4e}); served tokens unlike the "
+          "eager argmax: " + ", ".join(f"{m} {len(v)}" for m, v in mismatch.items()))
+    if graph_unequal:
+        # cuBLAS under capture changed bits: hold the graphs to the delta rule.
+        print(f"[6] cuBLAS under capture changed bits: the graphs' logits are held to "
+              f"delta_first {delta_first:.4e}, their tokens to the top-2 rule")
+        if not graph_diff <= delta_first:
+            fail(f"graph logits differ from the eager steps' by {graph_diff} > {delta_first}")
+        for mode, rows_ in mismatch.items():
+            for i, j, logits in rows_:
+                gap = _top2_gap(torch, logits)
+                if not gap < 2 * delta_first:
+                    fail(f"{mode} request {i} token {j} differs from the eager argmax at top-2 "
+                         f"gap {gap} >= 2 delta")
+    elif any(mismatch.values()):
+        fail("tokens through the graphs differ from the eager tokens at (request, token) "
+             + "; ".join(f"{m} {[(i, j) for i, j, _ in v]}" for m, v in mismatch.items()))
     n_mode = 0
     for i, (c, g) in enumerate(zip(tokens["continuous"], tokens["generation"])):
         if np.array_equal(c, g):
@@ -1078,43 +1296,69 @@ def phase_lm_serving(torch, cfg, params):
         fail(f"B=1 and {SERVE_SLOTS}-slot decode differ by {delta_mode}, more than the "
              f"control {delta_first}")
     print(f"[6] delta (chunked prefill vs serving prefill) {delta_first:.4e}: {n_first} of "
-          f"{len(work)} first tokens differ, each at a near tie; delta (B=1 vs {SERVE_SLOTS}-slot "
-          f"decode, teacher-forced) {delta_mode:.4e}: {n_mode} of {len(work)} requests diverge "
-          f"between modes, each at a near tie; teacher-forced replay mismatches "
-          f"{replay_mismatch}")
-    if replay_mismatch:
-        fail(f"the teacher-forced B=1 replay disagrees with generation mode {replay_mismatch} "
-             "times: the card's products are not reproducible")
+          f"{len(work)} first tokens differ from the kernel prefill's, each at a near tie; "
+          f"delta (B=1 vs {SERVE_SLOTS}-slot decode, teacher-forced) {delta_mode:.4e}: {n_mode} "
+          f"of {len(work)} requests diverge between modes, each at a near tie")
 
-    # Where a decode step's time goes: host ops issued against kernel time
-    # on the card, over a short profiler window of B = 1 steps.
+    # A decode step eager against one replay, at B = 1 and B = 8, by the
+    # host's clock in turns; then where the time goes, eager and replayed:
+    # host ops issued against kernel time on the card, over a short
+    # profiler window.
+    prompt = torch.as_tensor(work[0][0]).cuda()
+    states = {1: bundle.prefill_state(params, prompt, SERVE_CACHE_LEN)[1]}
+    states[SERVE_SLOTS] = pool_decode_state(cfg, SERVE_SLOTS, SERVE_CACHE_LEN, "cuda")
+    graphs = {1: g1, SERVE_SLOTS: g8}
+    for slot in range(SERVE_SLOTS):
+        slot_insert(states[SERVE_SLOTS], states[1], slot)
+    g1.prefill(prompt)
+    for B, graph in graphs.items():
+        feed = torch.zeros((B, 1), dtype=torch.int64, device="cuda")
+
+        def eager(B=B, feed=feed):
+            states[B] = decode_step(params, cfg, states[B], feed)[1]
+
+        step_ms, runs = host_times_in_turns(
+            torch, {"eager": eager, "replay": partial(graph, feed)}, 10)
+        print(f"[6] decode step B={B} (host clock, ending in synchronize, mean of 2 x 10 in "
+              f"turns): eager {step_ms['eager']:.3f} ms, replay {step_ms['replay']:.3f} ms; "
+              "runs " + ", ".join(f"{k} " + "/".join(f"{x:.3f}" for x in v)
+                                   for k, v in runs.items()))
     from torch.profiler import ProfilerActivity, profile
 
-    _, st = bundle.prefill_state(params, torch.as_tensor(work[0][0]).cuda(), SERVE_CACHE_LEN)
     feed = torch.zeros((1, 1), dtype=torch.int64, device="cuda")
-    n_steps = 5
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n_steps):
-            _, st = decode_step(params, cfg, st, feed)
+    for label, fn in (("eager", lambda: decode_step(params, cfg, states[1], feed)),
+                      ("replay", lambda: g1(feed))):
+        n_steps = 5
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = prof.events()
-    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-    ops = [e for e in events if e.name.startswith("aten::") and e.device_type != torch.autograd.DeviceType.CUDA
-           and (e.cpu_parent is None or not e.cpu_parent.name.startswith("aten::"))]
-    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / n_steps
-    wall_ms = wall * 1e3 / n_steps
-    if kernels:
-        print(f"[6] decode step B=1 (profiler, {n_steps} steps): {wall_ms:.3f} ms wall, "
-              f"{len(ops) / n_steps:.0f} top-level host ops and {len(kernels) / n_steps:.0f} "
-              f"kernels per step, kernel time {busy_ms:.3f} ms: device busy "
-              f"{busy_ms / wall_ms:.1%}, idle {1 - busy_ms / wall_ms:.1%}")
-    else:
-        print(f"[6] decode step B=1: {wall_ms:.3f} ms wall under the profiler, "
-              f"{len(ops) / n_steps:.0f} host ops per step; device time not measured "
-              "(the profiler saw no kernels)")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n_steps):
+                fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        events = prof.events()
+        kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+        ops = [e for e in events if e.name.startswith("aten::")
+               and e.device_type != torch.autograd.DeviceType.CUDA
+               and (e.cpu_parent is None or not e.cpu_parent.name.startswith("aten::"))]
+        busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / n_steps
+        wall_ms = wall * 1e3 / n_steps
+        if kernels:
+            print(f"[6] decode step B=1 {label} (profiler, {n_steps} steps): {wall_ms:.3f} ms "
+                  f"wall, {len(ops) / n_steps:.0f} top-level host ops and "
+                  f"{len(kernels) / n_steps:.0f} device operations per step, device time "
+                  f"{busy_ms:.3f} ms: device busy {busy_ms / wall_ms:.1%}, idle "
+                  f"{1 - busy_ms / wall_ms:.1%}")
+            by_name = Counter()
+            for e in kernels:
+                by_name[e.name] += e.time_range.elapsed_us() / 1e3 / n_steps
+            print(f"[6] decode step B=1 {label}, device time by operation (ms a step, share): "
+                  + "; ".join(f"{name[:90]} {t:.3f} ({t / busy_ms:.1%})"
+                              for name, t in by_name.most_common(5)))
+        else:
+            print(f"[6] decode step B=1 {label}: {wall_ms:.3f} ms wall under the profiler, "
+                  f"{len(ops) / n_steps:.0f} host ops per step; device time not measured "
+                  "(the profiler saw no kernels)")
 
 
 def phase_lm(torch, rows):
@@ -1150,7 +1394,10 @@ def main() -> None:
     phase_kernels(torch, rows)
     phase_flash(torch, rows)
     phase_planted_faults(torch)
-    phase_batch_invariance(torch, PAPER)
+    walls = phase_batch_invariance(torch, PAPER)
+    rows["swe_fused_step"].update({
+        f"forward_b8_wall_ms_{kind}_level{level}": walls[level][kind]
+        for level in walls for kind in ("eager", "replay")})
     phase_main_path(torch, PAPER, rows)
     phase_lm(torch, rows)
     print(f"[7] all phases passed in {time.perf_counter() - t_start:.1f}s")

@@ -17,8 +17,9 @@ import re
 import shutil
 import subprocess
 import threading
+from contextlib import contextmanager
 from pathlib import Path
-from typing import Dict, Iterable, List, Sequence, Tuple
+from typing import Dict, Iterable, Iterator, List, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -39,26 +40,49 @@ EXTRA_FLAGS = {"swe_flux": ("--fmad=false",), "matern": ("--fmad=false",)}
 Signature = Tuple[object, Sequence[object]]
 
 
+# Per thread: the tally of launches recorded while this thread captures a
+# CUDA graph (see ``recording``), or None.
+_CAPTURE = threading.local()
+
+
 class LaunchCounter:
-    """Thread-safe count of one kernel's launches (balancer workers launch
-    concurrently)."""
+    """Thread-safe count of one kernel's launches on the card (balancer
+    workers launch concurrently).
+
+    A launch issued while its thread captures a CUDA graph is recorded, not
+    run: it goes to that capture's tally and not to the count.  Each replay
+    of the graph then adds the tally (``replayed=True``), so ``value`` stays
+    the number of times the card ran the kernel, and ``replayed`` says how
+    many of those came from graph replays."""
 
     def __init__(self, name: str) -> None:
         self.name = name
         self._n = 0
+        self._replayed = 0
         self._lock = threading.Lock()
 
-    def add(self) -> None:
+    def add(self, n: int = 1, *, replayed: bool = False) -> None:
+        tally = getattr(_CAPTURE, "tally", None)
+        if tally is not None:
+            tally[self.name] = tally.get(self.name, 0) + n
+            return
         with self._lock:
-            self._n += 1
+            self._n += n
+            if replayed:
+                self._replayed += n
 
     def reset(self) -> None:
         with self._lock:
             self._n = 0
+            self._replayed = 0
 
     @property
     def value(self) -> int:
         return self._n
+
+    @property
+    def replayed(self) -> int:
+        return self._replayed
 
 
 class KernelLibrary:
@@ -172,3 +196,15 @@ def check_launch(err: int, kernel: str) -> None:
 def reset_counters() -> None:
     for c in COUNTERS.values():
         c.reset()
+
+
+@contextmanager
+def recording() -> Iterator[Dict[str, int]]:
+    """Within the block, this thread's launches are tallied by counter name
+    in the yielded dict instead of counted: the block captures a graph."""
+    tally: Dict[str, int] = {}
+    _CAPTURE.tally = tally
+    try:
+        yield tally
+    finally:
+        _CAPTURE.tally = None

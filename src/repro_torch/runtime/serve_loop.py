@@ -7,6 +7,12 @@ are two balancer tag families (``prefill:<variant>`` and
 one batched decode step; ``gen:<variant>`` servers are the
 generation-granularity baseline.  Greedy sampling throughout.
 
+Every server decodes through a :class:`DecodeGraph`: the decode step and
+its argmax captured once as a CUDA graph over a static decode state (the
+counterpart of the reference's jitted ``prefill_state`` and decode steps),
+so a token costs one replay instead of ~2,700 eager launches.  A prompt
+replays the B = 1 graph once a position.
+
 Not ported yet (ROADMAP Queue 1 item 10): the paged and speculative modes,
 and the sharded per-cell entry points (``shard_prefill_step`` /
 ``shard_decode_step``), which wait with the sharding layer.
@@ -30,8 +36,10 @@ from repro_torch.balancer import (
 )
 from repro_torch.configs.base import NOT_PORTED, ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.graphs import StaticGraph
 from repro_torch.models import ModelBundle, build_model
-from repro_torch.models.lm import pool_decode_state, slot_insert
+from repro_torch.models.attention import KVCache
+from repro_torch.models.lm import DecodeState, init_decode_state, slot_insert
 
 MODES = ("continuous", "generation")
 
@@ -44,21 +52,80 @@ def _prompt_tensor(prompt, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(prompt, dtype=np.int64).reshape(1, -1), device=device)
 
 
+class DecodeGraph:
+    """The greedy decode step over one static decode state of ``batch``
+    rows: ``bundle.decode_step`` and the argmax, captured once as a CUDA
+    graph (eager on the CPU; see :class:`~repro_torch.graphs.StaticGraph`).
+
+    ``state`` is the static state: the graph reads and writes it in place
+    (the step's new positions are copied back into ``state.pos``), so a
+    pool inserts into it directly.  A call takes ``(batch, 1)`` tokens and
+    returns ``(ids (batch,), logits (batch, 1, V))``.
+    """
+
+    def __init__(self, bundle: ModelBundle, params, batch: int, cache_len: int, *,
+                 name: str) -> None:
+        device = _device_of(params)
+        self.state = init_decode_state(bundle.cfg, batch, cache_len, device)
+
+        def step(tokens: torch.Tensor):
+            logits, new = bundle.decode_step(params, self.state, tokens)
+            self.state.pos.copy_(new.pos)
+            return torch.argmax(logits[:, -1], dim=-1), logits
+
+        self.graph = StaticGraph(
+            step, [torch.zeros((batch, 1), dtype=torch.int64, device=device)], name=name
+        )
+        self.reset()  # the capture's eager warm-up ran a step on the state
+
+    def __call__(self, tokens: torch.Tensor):
+        return self.graph(tokens)
+
+    def reset(self) -> None:
+        """Empty every row, as ``init_decode_state`` makes them."""
+        kv = self.state.kv
+        kv.k.zero_()
+        kv.v.zero_()
+        kv.pos_buf.fill_(-1)
+        self.state.pos.zero_()
+
+    def prefill(self, prompt: torch.Tensor):
+        """From an empty state, one replay per prompt position (``prompt``
+        is ``(batch, S)`` on the state's device); the last call's result."""
+        self.reset()
+        for t in range(prompt.shape[1]):
+            out = self(prompt[:, t : t + 1])
+        return out
+
+    def snapshot(self) -> DecodeState:
+        """A copy of the state that the next request cannot overwrite."""
+        kv = self.state.kv
+        return DecodeState(
+            kv=KVCache(kv.k.clone(), kv.v.clone(), kv.pos_buf.clone()),
+            pos=self.state.pos.clone(),
+        )
+
+
 def make_prefill_fn(bundle: ModelBundle, params, cache_len: int) -> Callable[[Tuple], DecodeHandoff]:
     """Request handler for a ``prefill:<variant>`` server.
 
-    Theta contract: ``(prompt (1, S) ints, n_new, eos)``.  ``prefill_state``
-    produces the last-position logits and the B = 1 decode state; the
-    :class:`DecodeHandoff` carries that state and the first greedy token to
-    a decode slot.
+    Theta contract: ``(prompt (1, S) ints, n_new, eos)``.  The server's B = 1
+    :class:`DecodeGraph` (captured at its first request) replays over the
+    prompt, as ``bundle.prefill_state`` steps eagerly; the
+    :class:`DecodeHandoff` carries a snapshot of the state and the first
+    greedy token to a decode slot.
     """
     device = _device_of(params)
+    graph: Optional[DecodeGraph] = None
 
     def prefill(theta) -> DecodeHandoff:
+        nonlocal graph
         prompt, n_new, eos = theta
-        logits, state = bundle.prefill_state(params, _prompt_tensor(prompt, device), cache_len)
+        if graph is None:
+            graph = DecodeGraph(bundle, params, 1, cache_len, name="prefill B=1")
+        ids, _ = graph.prefill(_prompt_tensor(prompt, device))
         return DecodeHandoff(
-            state=state, token=int(torch.argmax(logits[0, -1])), max_new=int(n_new), eos=eos
+            state=graph.snapshot(), token=int(ids[0]), max_new=int(n_new), eos=eos
         )
 
     return prefill
@@ -78,20 +145,28 @@ def make_decode_pool(
     The pooled state has one row per slot, each at its own position, so one
     decode step advances every occupied slot by a token (the reference
     ``vmap``s a B = 1 step over the slots); the argmax runs on the card and
-    only ``(n_slots,)`` token ids come back to the host.
+    only ``(n_slots,)`` token ids come back to the host.  The pool's state
+    is the static state of an ``n_slots``-row :class:`DecodeGraph`,
+    captured when the pool first allocates its state: a step is one copy
+    of the tokens in, one replay and one copy of the ids out.
     """
-    cfg = bundle.cfg
-    device = _device_of(params)
+    graph: Optional[DecodeGraph] = None
+
+    def init_state() -> DecodeState:
+        nonlocal graph
+        graph = DecodeGraph(bundle, params, n_slots, cache_len, name=f"decode pool B={n_slots}")
+        return graph.state
 
     def step(pool_state, tokens):
-        feed = torch.as_tensor(np.asarray(tokens, dtype=np.int64), device=device)[:, None]
-        logits, state = bundle.decode_step(params, pool_state, feed)
-        return state, torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
+        if pool_state is not graph.state:
+            raise ValueError("a decode pool steps only the state its graph was captured over")
+        ids, _ = graph(torch.as_tensor(np.asarray(tokens, dtype=np.int64)).reshape(-1, 1))
+        return pool_state, ids.cpu().numpy()
 
     return DecodePool(
         step_fn=step,
         insert_fn=lambda st, slot, seq: slot_insert(st, seq, slot),
-        init_state_fn=lambda: pool_decode_state(cfg, n_slots, cache_len, device),
+        init_state_fn=init_state,
         n_slots=n_slots,
         name=name,
         capacity_tags=[tag],
@@ -107,18 +182,22 @@ def make_generate_fn(
     """Generation-granularity baseline handler for a ``gen:<variant>`` server:
     the same prefill and greedy sampling as the continuous path, then a
     B = 1 decode loop; the request holds the server for its whole
-    generation."""
+    generation.  Prompt and generation replay the server's B = 1
+    :class:`DecodeGraph`, each new token fed back on the card."""
     device = _device_of(params)
+    graph: Optional[DecodeGraph] = None
 
     def generate(theta) -> DecodeResult:
+        nonlocal graph
         prompt, n_new, eos = theta
-        logits, state = bundle.prefill_state(params, _prompt_tensor(prompt, device), cache_len)
-        tokens = [int(torch.argmax(logits[0, -1]))]
+        if graph is None:
+            graph = DecodeGraph(bundle, params, 1, cache_len, name="generate B=1")
+        ids, _ = graph.prefill(_prompt_tensor(prompt, device))
+        tokens = [int(ids[0])]
         times = [clock()]
         while len(tokens) < int(n_new) and (eos is None or tokens[-1] != eos):
-            feed = torch.full((1, 1), tokens[-1], dtype=torch.int64, device=device)
-            logits, state = bundle.decode_step(params, state, feed)
-            tokens.append(int(torch.argmax(logits[0, -1])))
+            ids, _ = graph(ids.reshape(1, 1))
+            tokens.append(int(ids[0]))
             times.append(clock())
         return DecodeResult(tokens=np.asarray(tokens, dtype=np.int64), token_times=times)
 

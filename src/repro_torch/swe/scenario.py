@@ -20,7 +20,7 @@ import torch
 
 from repro_torch.device import resolve_device
 
-from .solver import SWEConfig, make_solver
+from .solver import GraphBatchCache, SWEConfig, make_solver
 
 KM = 1000.0
 
@@ -155,26 +155,43 @@ class TohokuScenario:
         for the whole batch), then the observation operator per member.  A
         row does not depend on B; on the CPU it equals
         ``build_forward()(thetas[i])`` bit for bit.
+
+        The whole forward runs under one :class:`GraphBatchCache` keyed
+        ``(ny, nx)``, padding by repeating member 0 (a valid theta): on the
+        card a call is one copy in, one graph replay and one copy out, and
+        the solve inside the graph is the uncached stacked solve.
+        ``forward.eager`` is the same forward, unpadded, with every launch
+        issued from Python; ``forward.executables`` holds the graphs.
         """
         solver = make_solver(
             self.cfg, self.bathymetry(), self.probe_indices(), batch=True
         )
-        n_steps, dt = solver.n_steps, solver.dt
+        n_steps, dt, solve = solver.n_steps, solver.dt, solver.eager
         t_norm = n_steps * dt
         X, Y = self._grid()
 
-        def forward(thetas) -> torch.Tensor:
-            thetas = torch.atleast_2d(self._theta(thetas))
+        def stacked(thetas: torch.Tensor) -> torch.Tensor:
             # One bump per member: the same shapes as the single forward.
             eta0 = torch.stack([self._bump(X, Y, t) for t in thetas])
-            series, _ = solver(eta0)  # (B, n_steps, n_probes)
+            series, _ = solve(eta0)  # (B, n_steps, n_probes)
             return torch.stack(
                 [observe(s, dt, t_norm, self.arrival_threshold) for s in series]
             )
 
+        cache = GraphBatchCache(
+            stacked, key=(self.ny, self.nx), pad="repeat",
+            name=f"forward {self.ny}x{self.nx}",
+        )
+
+        def forward(thetas) -> torch.Tensor:
+            out, n = cache(torch.atleast_2d(self._theta(thetas)))
+            return out[:n]
+
         forward.n_steps = n_steps
         forward.dt = dt
         forward.device = self.torch_device
+        forward.eager = lambda thetas: stacked(torch.atleast_2d(self._theta(thetas)))
+        forward.executables = cache.executables
         return forward
 
     def build_series_forward(self) -> Callable:

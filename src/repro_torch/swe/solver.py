@@ -10,15 +10,19 @@ bathymetry ``b``.  Every function here is the plain PyTorch version and is
 axis-generic over leading batch dimensions: the last two axes are always
 ``(y, x)``.  :func:`make_solver` routes the time loop through the CUDA
 kernels of :mod:`repro_torch.kernels.swe_flux` when the bathymetry lies on
-the card, and through :func:`step` on the CPU.
+the card, and through :func:`step` on the CPU; a batched solve on the card
+is one CUDA-graph replay (:class:`GraphBatchCache`).
 """
 from __future__ import annotations
 
 import math
+import threading
 from dataclasses import dataclass
-from typing import Callable, NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+
+from repro_torch.graphs import StaticGraph
 
 G = 9.81  # m/s^2
 H_EPS = 1e-3  # wet/dry threshold [m]
@@ -153,10 +157,60 @@ def stable_dt(cfg: SWEConfig, h_max: float, u_margin: float = 15.0) -> float:
 
 
 def pow2_batch(n: int) -> int:
-    """Next power of two >= n (batch-size bucketing for benchmarks)."""
+    """Next power of two >= n: the graph cache's batch bucketing."""
     if n < 1:
         raise ValueError("batch size must be >= 1")
     return 1 << (n - 1).bit_length()
+
+
+class GraphBatchCache:
+    """Power-of-two padded, per-``(*key, B)`` CUDA-graph cache: the port's
+    counterpart of the reference's ``AOTBatchCache``.
+
+    ``stacked_fn`` takes one ``(B, ...)`` tensor whose leading axis is the
+    batch and returns tensors (or tuples of them) with the same leading
+    axis.  A call pads its input to ``pow2_batch(B)`` rows, ``"zeros"``
+    filling the padding with zeros and ``"repeat"`` with copies of row 0
+    (for inputs where zeros are not valid), and runs the
+    :class:`~repro_torch.graphs.StaticGraph` of that size: captured at the
+    first call of each size on the card, eager on the CPU.  It returns
+    ``(outputs, n)`` with the *padded* leading axis; the caller slices back
+    to ``n``.
+
+    ``executables`` maps ``(*key, B_pad)`` to that size's graphs, one per
+    calling thread: the balancer's workers may run two servers that share
+    one forward at once, and a graph's static buffers serve one caller at a
+    time.  A lock guards only the bookkeeping; captures and replays of
+    different threads run concurrently.
+    """
+
+    def __init__(self, stacked_fn: Callable, *, key: Tuple, pad: str = "zeros",
+                 name: str) -> None:
+        if pad not in ("zeros", "repeat"):
+            raise ValueError(f"unknown pad mode '{pad}'")
+        self.stacked_fn = stacked_fn
+        self.key = tuple(key)
+        self.pad = pad
+        self.name = name
+        self.executables: Dict[Tuple, Dict[int, StaticGraph]] = {}
+        self._lock = threading.Lock()
+
+    def __call__(self, stacked: torch.Tensor):
+        n = stacked.shape[0]
+        n_pad = pow2_batch(n)
+        if n_pad != n:
+            shape = (n_pad - n, *stacked.shape[1:])
+            fill = (stacked.new_zeros(shape) if self.pad == "zeros"
+                    else stacked[:1].expand(shape))
+            stacked = torch.cat([stacked, fill])
+        key, thread = (*self.key, n_pad), threading.get_ident()
+        with self._lock:
+            graph = self.executables.setdefault(key, {}).get(thread)
+        if graph is None:
+            graph = StaticGraph(self.stacked_fn, [stacked], name=self.name)
+            with self._lock:
+                self.executables[key][thread] = graph
+        return graph(stacked), n
 
 
 def _rest_depth(b: torch.Tensor) -> torch.Tensor:
@@ -191,7 +245,11 @@ def make_solver(
     final state)``; the whole batch advances in one time loop.  Each member
     runs the same elementwise arithmetic as the unbatched CPU solver, so on
     the CPU batched rows equal unbatched rows bit for bit, and on the card
-    a row of the fused kernel does not depend on the batch size.
+    a row of the fused kernel does not depend on the batch size.  The whole
+    stacked solve (the initial state, then the loop of fused steps) runs
+    under a :class:`GraphBatchCache` keyed ``(ny, nx)`` with zero padding,
+    whose graphs are ``solve_batch.executables``; ``solve_batch.eager`` is
+    the same solve, unpadded, with every launch issued from Python.
     """
     b = b.to(torch.float32).contiguous()
     if b.shape != (cfg.ny, cfg.nx):
@@ -229,17 +287,28 @@ def make_solver(
     if not batch:
         return solve
 
+    def stacked(eta0_b: torch.Tensor):
+        state = initial_state(h_rest[None], eta0_b.to(torch.float32))
+        return swe_ops.solve_batched(state, b, dt, n_steps, pi, pj, cfg=cfg)
+
+    # Zero-displacement padding members are lake-at-rest solves.
+    cache = GraphBatchCache(
+        stacked, key=(cfg.ny, cfg.nx), pad="zeros", name=f"solve {cfg.ny}x{cfg.nx}"
+    )
+
     def solve_batch(eta0_b: torch.Tensor):
         if eta0_b.ndim != 3:
             raise ValueError(
                 f"batched solver wants (B, ny, nx), got {tuple(eta0_b.shape)}"
             )
-        state = initial_state(h_rest[None], eta0_b.to(torch.float32))
-        return swe_ops.solve_batched(state, b, dt, n_steps, pi, pj, cfg=cfg)
+        (series, final), n = cache(eta0_b.to(device=b.device, dtype=torch.float32))
+        return series[:n], SWEState(*(x[:n] for x in final))
 
     solve_batch.n_steps = n_steps
     solve_batch.dt = dt
     solve_batch.solve_one = solve
+    solve_batch.eager = stacked
+    solve_batch.executables = cache.executables
     return solve_batch
 
 

@@ -1,9 +1,10 @@
 """The port's planted faults and the flash-attention route, without a card.
 
-``chip_smoke.py`` builds each of its ``PLANTED_FAULTS`` (one textual edit of
-a CUDA source) and fails unless its checks reject every one; an edit that
-no longer matches its source would leave a check untested, so each edit is
-held here against the source it names, as text.  The flash wrapper's choice
+``chip_smoke.py`` builds or loads each of its ``PLANTED_FAULTS`` (one
+textual edit of a CUDA source or of the graph module ``graphs.py``) and
+fails unless its checks reject every one; an edit that no longer matches
+its source would leave a check untested, so each edit is held here against
+the source it names, as text.  The flash wrapper's choice
 of kernel is a pure function of dtype and head dim (``ops.route``), tested
 here for every combination it takes and every one it refuses.
 """
@@ -25,7 +26,7 @@ FAULTS = chip_smoke.PLANTED_FAULTS
 
 
 def _source(name: str) -> str:
-    return (build.CSRC / name).read_text()
+    return chip_smoke.fault_source(name).read_text()
 
 
 def _span(text: str, start: str, end: str) -> str:
@@ -90,7 +91,20 @@ def test_sweep_is_the_tile_kernel_in_one_direction():
 
 
 def test_every_kernel_source_has_a_fault():
-    assert {f[0] for f in FAULTS.values()} == {"flash_attention.cu", "swe_flux.cu", "matern.cu"}
+    assert {f[0] for f in FAULTS.values() if f[0].endswith(".cu")} == {
+        "flash_attention.cu", "swe_flux.cu", "matern.cu"}
+    assert all(f[0] in ("flash_attention.cu", "swe_flux.cu", "matern.cu", "graphs.py")
+               for f in FAULTS.values())
+
+
+@pytest.mark.parametrize("name", ["graph_input_copy_dropped", "graph_outputs_not_cloned"])
+def test_graph_faults_lie_in_the_static_graph_call(name):
+    """The graph faults edit ``StaticGraph.__call__``, the one copy-in and
+    clone-out that every graph of the port (batched solves, forwards and
+    decode steps) goes through."""
+    source, old, _ = FAULTS[name]
+    call = _span(_source(source), "    def __call__(self, *inputs", "    def _order_after_last_replay")
+    assert source == "graphs.py" and old in call
 
 
 @pytest.mark.parametrize("head_dim", ops.HEAD_DIMS)
