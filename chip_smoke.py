@@ -12,9 +12,10 @@ Phases (any failure exits non-zero; there is no CPU path):
 2. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes (fused SWE step at 288x288 and 96x96 with B = 8, the
    directional sweep at 288x288 in x and y, the Matérn matrix at (8, 2) x
-   (512, 2) and (130, 5) x (70, 5), the Matérn posterior mean at (8, 2) x
-   (512, 2), (1, 2) x (512, 2) and (5, 3) x (300, 3) with p = 4, also bit
-   for bit against the matrix kernel and the PyTorch contraction); flash
+   (512, 2) and (130, 5) x (70, 5), the Matérn posterior mean at the seven
+   shapes of ``MATERN_MEAN_CASES`` (the main path's p = 4, the series GP's
+   p = 519, trees over the shared-memory budget), also bit for bit against
+   the matrix kernel and the PyTorch contraction); flash
    attention over the reference's six test
    cases in fp32 (the CUDA-core route) and in bf16 (the tensor-core route),
    its bf16 case, and qwen2-0.5b's heads at 4096 tokens against the
@@ -37,7 +38,10 @@ Phases (any failure exits non-zero; there is no CPU path):
    solver's and forward's graph replays bit for bit against their eager
    loops (series, final state, observables), print the graph keys, the
    launches recorded per graph and the device operations of one B = 8
-   replay, and time the B = 8 forward eager against replay;
+   replay, and time the B = 8 forward eager against replay; hold the single
+   solves' replays (forward at both levels, probe series at the coarse one)
+   and the batched series forward's (B = 1, 3, 8) against their eager loops,
+   and time the fine single forward eager against replay;
 4. drive the MLDA main path, ``repro_torch.launch.tsunami.run``, at the
    ``paper`` preset's widths (96x96 and 288x288 grids, 512 LHS points, 200
    Adam steps, 5 chains through the balancer), with the launch counters set
@@ -45,7 +49,15 @@ Phases (any failure exits non-zero; there is no CPU path):
    posterior-mean route), levels 1 and 2 must evaluate through graph
    replays (``graph_replays`` per level above 0) and most fused-step
    launches must come from replays; check the outputs against the plain
-   path;
+   path, and the Fig. 6 series GP's series (the coarse step count of finite
+   values, through the mean kernel at that p, within the Matérn bound of
+   the plain mean);
+4b. export the card's level pools over loopback (``ServerShell`` on
+   127.0.0.1) and drive ``run(..., remote=...)`` through them in binary
+   framing (5 chains x 30 fine samples) and UM-Bridge JSON (2 x 5): every
+   level has a wire/service split, the kernels launch, the chains are
+   finite, and 8 thetas a level through ``RemoteBatchServer`` equal the
+   in-process server's rows bit for bit in both protocols;
 5. the LM slice's prefill: qwen2-0.5b at full width in bf16 (seeded random
    weights) on one 32768-token prompt, counters at 0 just before; the
    tensor-core flash kernel must launch once per layer, the fp32 one never; the last position's logits must be
@@ -103,9 +115,19 @@ MATERN_ATOL = 5e-6  # as the reference's kernel test
 # followed by the PyTorch contraction (the same operations in the same
 # order), and against its plain version within the Matérn bound carried
 # through the sum: 5e-6 sum_j |alpha_jq| y_scale_q for output q.  Shapes
-# (B, n, d) with p outputs: the main path's, its B = 1 rows, a ragged one.
-MATERN_MEAN_CASES = ((8, 512, 2), (1, 512, 2), (5, 300, 3))
-MATERN_MEAN_P = 4
+# (B, n, d, p): the main path's, its B = 1 rows, a ragged one; the Fig. 6
+# series GP's (p = 519 coarse steps at the paper preset: two output tiles),
+# and B = 1 rows of it; a tree over the shared-memory budget (n = 4096, one
+# register level); both at once (n = 5000, 37 outputs: ten tiles, two
+# register levels).
+MATERN_MEAN_CASES = ((8, 512, 2, 4), (1, 512, 2, 4), (5, 300, 3, 4), (8, 32, 2, 519),
+                     (1, 32, 2, 519), (8, 4096, 2, 4), (3, 5000, 3, 37))
+MATERN_MEAN_MAIN = MATERN_MEAN_CASES[0]
+MATERN_MEAN_TIMED = ((8, 32, 2, 519), (8, 4096, 2, 4), (3, 5000, 3, 37))
+# The mean kernel's time at the main path's shape in its design before the
+# output tiles and register levels (one block a row; PERF.md §6 row 3),
+# printed beside this run's.
+MATERN_MEAN_SINGLE_TILE_MS = 0.00382
 # Single-theta (sweep kernel) against batched (fused kernel) observables,
 # and the main path's observables against the plain path's, over a whole
 # solve.  Probe heights are h + b with h ~ 7 km, so they come in steps of
@@ -180,6 +202,14 @@ PLANTED_FAULTS = {
         "s[q * width + j] += s[q * width + j + half];",
         "s[q * width + j] += s[q * width + 2 * half - 1 - j];",
     ),
+    # The posterior-mean kernel's register levels drop the last term of each
+    # slot (m = 2^levels - 1): a fault of the trees over the shared-memory
+    # budget only.
+    "mean_register_level_last_term_dropped": (
+        "matern.cu",
+        "for (int r = 0; r < count; ++r) {",
+        "for (int r = 0; r < count - 1; ++r) {",
+    ),
     # A graph call replays without copying the caller's tensors into the
     # static inputs: every call after the capture answers the capture's input.
     "graph_input_copy_dropped": (
@@ -241,6 +271,15 @@ def bound_ms(n_bytes: float, n_flops: float, peak_flops: float = PEAK_FP32_FLOPS
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = n_flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def mean_bound_ms(B: int, n: int, d: int, p: int):
+    """The posterior mean's bound: each input read once (x, ls, xs, alpha,
+    y_scale, y_mean), the output written once; a Matérn element (3d + 15
+    operations) per (row, training point), a product and an add per output
+    of it, and the affine step."""
+    return bound_ms((B * d + d + n * d + n * p + 2 * p + B * p) * 4,
+                    B * n * (3 * d + 15 + 2 * p) + 2 * B * p)
 
 
 def device_time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
@@ -412,9 +451,10 @@ def matern_checks(torch):
         e = float((k - matern52_ref(a, bb, 1.3)).abs().max())
         err["matrix"] = max(err["matrix"], e)
         out.append((f"matern52 ({n},{d})x({m},{d})", "max abs err", e, MATERN_ATOL))
-    for (B, n, d) in MATERN_MEAN_CASES:
-        x, ls, xs, alpha, ys, ym = _mean_inputs(torch, gen, B, n, d, MATERN_MEAN_P)
-        label = f"matern52_mean ({B},{d})x({n},{d}) p={MATERN_MEAN_P}"
+    for (B, n, d, p) in MATERN_MEAN_CASES:
+        x, ls, xs, alpha, ys, ym = _mean_inputs(torch, gen, B, n, d, p)
+        qt, levels = matern_ops.mean_plan(n, p)
+        label = f"matern52_mean ({B},{d})x({n},{d}) p={p} (tiles of {qt}, {levels} register levels)"
         got = matern_ops.matern52_mean(x, ls, xs, alpha, ys, ym, 1.3)
         ks = matern_ops.matern52_scaled((x / ls).contiguous(), xs, 1.3)
         composed = posterior_mean_from_matrix(ks, alpha, ys, ym)
@@ -509,9 +549,14 @@ def host_time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     return total / iters * 1e3
 
 
-def device_ops_of(torch, fn):
-    """The names of what one call of ``fn`` runs on the card (kernels,
-    copies and memsets), from ``torch.profiler``."""
+# The host's kernel-launch calls as the profiler records them (the CUDA
+# runtime's entry points and their `cu*` counterparts).
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
+
+
+def profiled_events(torch, fn):
+    """``torch.profiler``'s events of one call of ``fn`` (after one call
+    outside the window), host and device."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -519,12 +564,30 @@ def device_ops_of(torch, fn):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return prof.events()
 
 
-def cuda_kernels_of(torch, fn):
-    """The CUDA kernels among ``device_ops_of``: copies and memsets left out."""
-    return [n for n in device_ops_of(torch, fn) if not n.startswith(("Memcpy", "Memset"))]
+def device_ops_of(torch, fn):
+    """The names of what one call of ``fn`` runs on the card (kernels,
+    copies and memsets), from ``torch.profiler``."""
+    return [e.name for e in profiled_events(torch, fn)
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def kernel_launches_of(torch, fn):
+    """The kernel launches one call of ``fn`` issues, counted from the
+    host's launch calls under ``torch.profiler``, and the names of the
+    kernels the profiler recorded on the card.  The host records are the
+    count; the device records are printed beside them but are no count:
+    late in a run the profiler can record no device activity for a window
+    whose only kernel is the posterior-mean kernel (the single-tile design
+    as well; idle margins around the window did not bring it back), while
+    it records the launch call.  The cause is not known."""
+    events = profiled_events(torch, fn)
+    launches = sum(e.name in LAUNCH_CALLS for e in events)
+    names = [e.name for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+             and not e.name.startswith(("Memcpy", "Memset"))]
+    return launches, names
 
 
 def phase_kernels(torch, rows):
@@ -621,12 +684,24 @@ def phase_kernels(torch, rows):
     # the same points, and a whole level-0 batch_call at B = 8 by the host's
     # clock, before (the matrix kernel and the PyTorch contraction) and
     # after (the mean kernel), in turns.
-    mb, mn, md, mp = 8, 512, 2, MATERN_MEAN_P
+    mb, mn, md, mp = MATERN_MEAN_MAIN
     mean_in = _mean_inputs(torch, gen, mb, mn, md, mp)
     mean_ms = device_time_ms(torch, lambda: matern_ops.matern52_mean(*mean_in, 1.3), 400)
     mean_plain_ms = device_time_ms(torch, lambda: matern52_mean_ref(*mean_in, 1.3), 20)
-    m_bound = bound_ms((mb * md + md + mn * md + mn * mp + 2 * mp + mb * mp) * 4,
-                       mb * mn * (3 * md + 15 + 2 * mp) + 2 * mb * mp)
+    m_bound = mean_bound_ms(*MATERN_MEAN_MAIN)
+    # The other posterior-mean shapes (tiles, register levels): kernel and
+    # plain time beside the bound, and the plan.
+    mean_shapes = []
+    for case in MATERN_MEAN_TIMED:
+        args = _mean_inputs(torch, gen, *case)
+        qt, levels = matern_ops.mean_plan(case[1], case[3])
+        bound = mean_bound_ms(*case)
+        mean_shapes.append(dict(
+            shape="({0}, {2}) x ({1}, {2}) fp32, p = {3}".format(*case),
+            tile=qt, register_levels=levels,
+            ms=device_time_ms(torch, lambda: matern_ops.matern52_mean(*args, 1.3), 200),
+            plain_ms=device_time_ms(torch, lambda: matern52_mean_ref(*args, 1.3), 5, warmup=1),
+            bound_ms=bound[0], bound_by=bound[1]))
     a = (mean_in[0] / mean_in[1]).contiguous()
     xs = mean_in[2]
     matern_ms = device_time_ms(torch, lambda: matern_ops.matern52_scaled(a, xs, 1.3), 400)
@@ -646,7 +721,11 @@ def phase_kernels(torch, rows):
           f"{n_fine}-step solve {whole_ms:.4f} ms a step, 96x96 B=8 {fused96_ms:.4f} ms; "
           f"sweep 288x288 B=1 x {sweep_ms[0]:.4f} ms (plain "
           f"{sweep_plain_ms[0]:.4f}), y {sweep_ms[1]:.4f} ms (plain {sweep_plain_ms[1]:.4f}); "
-          f"matern52_mean (8,2)x(512,2) p={mp} {mean_ms:.4f} ms (plain {mean_plain_ms:.4f}); "
+          f"matern52_mean ({mb},{md})x({mn},{md}) p={mp} {mean_ms:.4f} ms (plain "
+          f"{mean_plain_ms:.4f}; the single-tile design {MATERN_MEAN_SINGLE_TILE_MS:.5f}); "
+          + "".join(f"matern52_mean {m['shape']} {m['ms']:.4f} ms (plain {m['plain_ms']:.4f}, "
+                    f"bound {m['bound_ms']:.5f} by {m['bound_by']}, tiles of {m['tile']}, "
+                    f"{m['register_levels']} register levels); " for m in mean_shapes) +
           f"matern52 matrix (8,2)x(512,2) {matern_ms:.4f} ms (plain {matern_plain_ms:.4f}); "
           f"launch floor {floor_ms:.4f} ms; "
           "library_ms: no single PyTorch call computes any of these functions")
@@ -677,7 +756,9 @@ def phase_kernels(torch, rows):
             max_abs_err=matern_err["mean"], shape=f"({mb}, {md}) x ({mn}, {md}) fp32, p = {mp}",
             ms=mean_ms, plain_ms=mean_plain_ms, bound_ms=m_bound[0], bound_by=m_bound[1],
             library_ms=None, launch_floor_ms=floor_ms,
-            kernel="matern52_mean_kernel: the posterior mean, one block a query row",
+            kernel="matern52_mean_kernel: the posterior mean, one block a query row and "
+                   "output tile",
+            other_mean_shapes=mean_shapes,
             batch_call_ms_before=call_ms["before"], batch_call_ms_after=call_ms["after"],
             matrix_kernel="matern52_kernel: the kernel matrix, for the posterior variance",
             matrix_max_abs_err=matern_err["matrix"], matrix_ms=matern_ms,
@@ -863,13 +944,13 @@ def phase_planted_faults(torch) -> None:
 # ---------------------------------------------------------------------------
 # phase 3: batch invariance
 # ---------------------------------------------------------------------------
-def host_times_in_turns(torch, fns, iters: int):
+def host_times_in_turns(torch, fns, iters: int, warmup: int = 3):
     """``host_time_ms`` of each of ``fns`` ({label: fn}), in the turns a, b,
     b, a (two labels); the mean of the two turns of each, and every turn."""
     (a, fa), (b, fb) = fns.items()
     runs = {a: [], b: []}
     for label, fn in ((a, fa), (b, fb), (b, fb), (a, fa)):
-        runs[label].append(host_time_ms(torch, fn, iters))
+        runs[label].append(host_time_ms(torch, fn, iters, warmup))
     return {k: sum(v) / len(v) for k, v in runs.items()}, runs
 
 
@@ -909,6 +990,55 @@ def phase_graph_replay(torch, sc, thetas, level: int):
     return walls
 
 
+def single_and_series_checks(torch, sc, thetas, level: int):
+    """The single solves' graph replays (``build_forward`` at every level,
+    ``build_series_forward`` at the coarse one) against their eager loops,
+    bit for bit, and the fine single forward's wall eager against replay;
+    at the coarse level the batched series forward (the Fig. 6 GP's
+    design solves): replay against its eager loop at B = 1, 3 (padded to 4)
+    and 8, B = 1 rows against B = 8 rows, and against the single series
+    forward within the observables' bound."""
+    f1 = sc.build_forward()
+    singles = [("single forward", f1)]
+    if level == 1:
+        singles.append(("single series", sc.build_series_forward()))
+    for label, fn in singles:
+        n = sum(unequal([fn(t)], [fn.eager(t)]) for t in thetas[:2])
+        print(f"[3] level {level} {sc.ny}x{sc.nx} {label}: graph replay vs eager loop at 2 "
+              f"thetas, unequal values {n}; graphs per key "
+              f"{ {k: len(v) for k, v in fn.executables.items()} }")
+        if n:
+            fail(f"level {level} {label}: graph replay differs from the eager loop")
+    if level == 2:
+        walls, runs = host_times_in_turns(
+            torch, {"eager": lambda: f1.eager(thetas[0]), "replay": lambda: f1(thetas[0])}, 2,
+            warmup=1)
+        print(f"[3] level 2 single forward wall (host clock, ending in synchronize, mean of "
+              f"2 x 2 calls in turns): eager {walls['eager']:.3f} ms, replay "
+              f"{walls['replay']:.3f} ms; runs "
+              + ", ".join(f"{k} " + "/".join(f"{x:.3f}" for x in v) for k, v in runs.items()))
+        return walls
+    fb = sc.build_batch_series_forward()
+    for B in (1, 3, 8):
+        n = unequal([fb(thetas[:B])], [fb.eager(thetas[:B])])
+        print(f"[3] level 1 {sc.ny}x{sc.nx} batched series forward B={B}: graph replay vs "
+              f"eager loop, unequal values {n}")
+        if n:
+            fail(f"batched series forward B={B}: graph replay differs from the eager loop")
+    full = fb(thetas)
+    rows1 = torch.cat([fb(thetas[i : i + 1]) for i in range(8)])
+    if not torch.equal(full, rows1):
+        fail("batched series forward: B=1 rows differ from B=8 rows")
+    single = torch.stack([singles[1][1](t) for t in thetas[:2]])
+    d = float((single - full[:2]).abs().max())
+    print(f"[3] level 1 batched series forward ({full.shape[1]} steps): B=1 rows == B=8 rows "
+          f"bit for bit; sweep-kernel single vs fused batched max abs diff {d:.3e}; graph keys "
+          f"{sorted(fb.executables)}")
+    if not d < OBS_ATOL:
+        fail(f"series: single vs batched differ by {d}")
+    return None
+
+
 def phase_batch_invariance(torch, w):
     import numpy as np
 
@@ -944,6 +1074,9 @@ def phase_batch_invariance(torch, w):
         if not d_single < OBS_ATOL:
             fail(f"level {level}: single vs batched observables differ by {d_single}")
         walls[level] = phase_graph_replay(torch, sc, thetas, level)
+        single_walls = single_and_series_checks(torch, sc, thetas, level)
+        if single_walls:
+            walls["single_fine"] = single_walls
     gp = _level0_gp(torch)
     before = matern_ops.MEAN_LAUNCHES.value
     full = gp.batch_call(thetas)
@@ -954,14 +1087,17 @@ def phase_batch_invariance(torch, w):
         fail("GP batch_call: B=1 rows differ from B=8 rows")
     print("[3] level 0 GaussianProcess.batch_call (n=512, mean kernel): B=1 rows == B=8 rows "
           "bit for bit")
-    # What one level-0 call launches on the card, under the profiler.
-    after = cuda_kernels_of(torch, lambda: gp.batch_call(thetas))
-    old = cuda_kernels_of(torch, lambda: _predict_before(gp, thetas))
-    print(f"[3] CUDA kernels of one batch_call at B=8 (torch.profiler): {len(after)} "
-          f"({', '.join(sorted(set(after)))}); before the mean kernel (matrix kernel + PyTorch "
-          f"contraction): {len(old)}")
-    if len(after) != 1:
-        fail(f"one level-0 batch_call launched {len(after)} CUDA kernels, want 1: {after}")
+    # What one level-0 call launches on the card, under the profiler: the
+    # host's launch calls are the count (see kernel_launches_of); a device
+    # record of a second kernel fails as well.
+    after, names = kernel_launches_of(torch, lambda: gp.batch_call(thetas))
+    old, old_names = kernel_launches_of(torch, lambda: _predict_before(gp, thetas))
+    print(f"[3] CUDA kernel launches of one batch_call at B=8 (torch.profiler, host launch "
+          f"calls): {after}; recorded on the card: {len(names)} "
+          f"({', '.join(sorted(set(names)))}); before the mean kernel (matrix kernel + PyTorch "
+          f"contraction): {old} launches, {len(old_names)} recorded on the card")
+    if after != 1 or len(names) > 1:
+        fail(f"one level-0 batch_call launched {after} CUDA kernels, want 1: {names}")
     return walls
 
 
@@ -972,6 +1108,8 @@ def phase_main_path(torch, w, rows):
     import numpy as np
 
     from repro_torch.kernels import build
+    from repro_torch.kernels.matern import ops as matern_ops
+    from repro_torch.kernels.matern.ref import matern52_mean_ref
     from repro_torch.launch.tsunami import run
     from repro_torch.swe.scenario import observe
     from repro_torch.swe.solver import initial_state, step
@@ -988,6 +1126,10 @@ def phase_main_path(torch, w, rows):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: c.value for name, c in build.COUNTERS.items()}
+    # The posterior-mean launches by output count p (the level-0 GP's p = 4,
+    # the series GP's p = coarse steps), counted by the wrapper where it
+    # launches, beside the kernel's total.
+    mean_by_p = matern_ops.mean_launches_by_p()
     print(f"[4] main path wall {wall:.1f}s; stage walls {res['walls']}; "
           f"kernel launches and graph replays {launches}")
     for name, counter in MLDA_KERNELS.items():
@@ -1056,6 +1198,135 @@ def phase_main_path(torch, w, rows):
     g_err = float((gp.batch_call(x_test) - gp.y_train[:8]).abs().max())
     print(f"[4] GP posterior mean at 8 training points: max abs err {g_err:.3e} "
           "against the coarse solves it was trained on")
+    # The Fig. 6 series GP: a finite series of the coarse level's length,
+    # predicted through the mean kernel at p = that length, within the
+    # Matérn bound of the plain mean.
+    n_series = h["forward_coarse"].n_steps
+    post_series = res["posterior_series"]
+    print(f"[4] series GP: {res['walls']['series_gp_s']:.2f} s (series_gp_s); posterior series "
+          f"{tuple(post_series.shape)}, max SSHA {float(post_series.max()):.4f} m; "
+          f"matern52_mean launches by p {dict(sorted(mean_by_p.items()))}")
+    if post_series.shape != (n_series,) or not bool(torch.isfinite(post_series).all()):
+        fail(f"posterior series {tuple(post_series.shape)} is not {n_series} finite values")
+    if not mean_by_p.get(n_series):
+        fail(f"the series GP did not launch matern52_mean at p = {n_series}")
+    if sum(mean_by_p.values()) != launches["matern52_mean"]:
+        fail(f"matern52_mean launches by p {mean_by_p} do not add up to its total "
+             f"{launches['matern52_mean']}")
+    sgp = res["series_gp"]
+    theta = torch.as_tensor(np.asarray(res["posterior_mean"]), dtype=torch.float32,
+                            device="cuda")[None]
+    got = sgp.predict(theta)
+    plain = matern52_mean_ref(theta, sgp._ls, sgp._x_scaled, sgp.alpha, sgp.y_scale,
+                              sgp.y_mean, sgp._outputscale)
+    # Steps before the wave reaches the probe are equal in every design
+    # solve: their y_scale is the 1e-12 floor, and their bound near 0.
+    bound = MATERN_ATOL * sgp.alpha.abs().sum(0) * sgp.y_scale
+    diff = (got - plain).abs()
+    within = bool((diff <= bound).all())
+    ratio = float((diff / bound)[:, bound > 0].max())
+    print(f"[4] series GP mean at the posterior mean, kernel vs plain: max err / Matérn bound "
+          f"{ratio:.3e} over the steps with a bound above 0 (limit 1), every step within its "
+          f"bound: {within}; equal to the run's series: {torch.equal(got[0], post_series)}")
+    if not (within and ratio < 1.0) or not torch.equal(got[0], post_series):
+        fail("the series GP's kernel mean is off its plain mean or the run's series")
+    rows["matern52"]["series_gp_launches_p"] = {n_series: mean_by_p[n_series]}
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: the remote leg
+# ---------------------------------------------------------------------------
+REMOTE_LEGS = ((True, 5, 30), (False, 2, 5))  # (binary framing, chains, fine samples)
+
+
+def phase_remote(torch, w, res):
+    """The card's level pools exported over loopback and sampled through
+    ``make_remote_level_servers``: binary framing, then UM-Bridge JSON.
+
+    The pools are rebuilt with ``make_level_servers`` from phase 4's GP and
+    hierarchy and wrapped in a ``ServerShell`` on 127.0.0.1; each leg is a
+    whole ``run(..., remote=...)`` in this process (its own hierarchy and
+    series GP on the card, the evaluations across the socket).  Fails
+    unless every level has a wire/service split, the fused-step and
+    Matérn-mean counters move, the chains are finite, and 8 fixed thetas
+    a level come back through ``RemoteBatchServer`` with the in-process
+    server's fp32 bits in both protocols."""
+    import numpy as np
+
+    from repro_torch.kernels import build
+    from repro_torch.launch.export import export_pools
+    from repro_torch.launch.tsunami import run
+    from repro_torch.swe import close_transports, local_level_servers, make_remote_level_servers
+
+    h = res["hierarchy"]
+    servers = local_level_servers(w, res["gp"], h)
+    batched = (h["forward_coarse_batch"], h["forward_fine_batch"])
+
+    def n_graphs() -> int:
+        return sum(len(per) for fb in batched for per in fb.executables.values())
+
+    graphs0, reserved0 = n_graphs(), torch.cuda.memory_reserved()
+    inproc_rate = w.n_chains * N_FINE_SAMPLES / res["walls"]["sampling_s"]
+    shell = export_pools(w, servers, n_obs=len(h["problem"].y_obs), host="127.0.0.1",
+                         port=0).start()
+    addr = "{}:{}".format(*shell.address)
+    print(f"[4b] exported {shell.tags} on {addr} ({len(servers)} servers)")
+    try:
+        for binary, n_chains, n_samples in REMOTE_LEGS:
+            mode = "binary" if binary else "UM-Bridge JSON"
+            wr = replace(w, n_chains=n_chains, n_fine_samples=n_samples)
+            build.reset_counters()
+            t0 = time.perf_counter()
+            r = run(wr, device="cuda", remote=(addr,), remote_binary=binary,
+                    log=lambda s: print(f"[4b] {s}", flush=True))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {name: c.value for name, c in build.COUNTERS.items() if c.value}
+            summary = r["balancer"]
+            split = summary.get("wire_split") or {}
+            tags = sorted(key.rsplit(":", 1)[1] for key in split)
+            sampling = r["walls"]["sampling_s"]
+            print(f"[4b] {mode}: {n_chains} chains x {n_samples} fine samples, wall {wall:.1f}s, "
+                  f"walls {r['walls']}; fine samples/s {n_chains * n_samples / sampling:.2f} "
+                  f"(in-process, phase 4: {inproc_rate:.2f}; here the wire, and one GIL "
+                  f"shared with the shell); idle mean "
+                  f"{summary['mean_idle_s'] * 1e3:.3f} ms p99 {summary['p99_idle_s'] * 1e3:.3f} ms; "
+                  f"launches {launches}")
+            for key, wsp in sorted(split.items()):
+                print(f"[4b] {mode} wire_split {key}: wire EWMA {wsp['wire_ewma_s'] * 1e3:.3f} ms, "
+                      f"service EWMA {wsp['service_ewma_s'] * 1e3:.3f} ms, {wsp['calls']} calls")
+            if tags != ["level0", "level1", "level2"]:
+                fail(f"{mode}: wire_split has levels {tags}, want level0, level1, level2")
+            for name in ("swe_fused_step", "matern52_mean"):
+                if not launches.get(name):
+                    fail(f"{mode}: {name} did not launch during the remote leg")
+            chains = np.asarray(r["chains"])
+            if r["failures"] or chains.shape != (n_chains, n_samples, 2) or not np.isfinite(
+                    chains).all():
+                fail(f"{mode}: chains {chains.shape}, failures {r['failures']}")
+        # A fixed batch of 8 thetas a level: remote rows == in-process rows.
+        th8 = list(np.random.default_rng(11).uniform(-200, 200, (8, 2)).astype(np.float32))
+        for binary in (True, False):
+            remotes = make_remote_level_servers(w, [addr], binary=binary)
+            try:
+                for rs in remotes:
+                    (tag,) = rs.capacity_tags
+                    local = next(s for s in servers if tag in s.capacity_tags)
+                    want, got = local.batch_call(th8), rs.batch_call(th8)
+                    n = sum(np.asarray(g, np.float32).tobytes() != np.asarray(x, np.float32).tobytes()
+                            for g, x in zip(got, want))
+                    print(f"[4b] {'binary' if binary else 'JSON'} {tag}: 8 thetas through "
+                          f"RemoteBatchServer vs the in-process server, unequal rows {n}")
+                    if n:
+                        fail(f"{tag}: remote rows differ from in-process rows")
+            finally:
+                close_transports(remotes)
+    finally:
+        shell.stop()
+    print(f"[4b] graph captures the remote leg added (one per shell thread and bucket): "
+          f"{n_graphs() - graphs0} ({graphs0} before, {n_graphs()} after); device memory "
+          f"reserved {(torch.cuda.memory_reserved() - reserved0) / 2**20:.1f} MiB more")
 
 
 # ---------------------------------------------------------------------------
@@ -1389,18 +1660,37 @@ def main() -> None:
     from repro_torch.configs.tohoku_mlda import PAPER
 
     t_start = time.perf_counter()
+    phase_walls = {}
+
+    def ended(phase: str) -> None:
+        phase_walls[phase] = round(time.perf_counter() - t_start - sum(phase_walls.values()), 1)
+
     phase_build()
+    ended("1 build")
     rows: dict = {}
     phase_kernels(torch, rows)
+    ended("2 kernels")
     phase_flash(torch, rows)
+    ended("2 flash")
     phase_planted_faults(torch)
+    ended("2 planted faults")
     walls = phase_batch_invariance(torch, PAPER)
+    ended("3 batch invariance")
     rows["swe_fused_step"].update({
         f"forward_b8_wall_ms_{kind}_level{level}": walls[level][kind]
-        for level in walls for kind in ("eager", "replay")})
-    phase_main_path(torch, PAPER, rows)
+        for level in (1, 2) for kind in ("eager", "replay")})
+    rows["swe_sweep"].update({
+        f"single_fine_forward_wall_ms_{kind}": walls["single_fine"][kind]
+        for kind in ("eager", "replay")})
+    res = phase_main_path(torch, PAPER, rows)
+    ended("4 main path")
+    phase_remote(torch, PAPER, res)
+    ended("4b remote leg")
+    del res
     phase_lm(torch, rows)
-    print(f"[7] all phases passed in {time.perf_counter() - t_start:.1f}s")
+    ended("5-6 LM")
+    print(f"[7] all phases passed in {time.perf_counter() - t_start:.1f}s; seconds by phase "
+          f"{phase_walls}")
     keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     kernels = [{"name": n, **{k: rows[n][k] for k in keys},

@@ -87,16 +87,19 @@ class GaussianProcess:
     chol: torch.Tensor  # (n, n)
     alpha: torch.Tensor  # (n, p)
     # Prediction constants, fixed once the parameters are: the lengthscales,
-    # the scaled training inputs and the output scale as a host float (no
-    # per-call launch or sync).
+    # the scaled training inputs, the output scale as a host float (no
+    # per-call launch or sync) and the mean kernel's plan for (n, p).
     _ls: torch.Tensor = field(init=False, repr=False)
     _x_scaled: torch.Tensor = field(init=False, repr=False)
     _outputscale: float = field(init=False, repr=False)
+    _mean_plan: tuple = field(init=False, repr=False)
 
     def __post_init__(self) -> None:
         self._ls = torch.exp(self.params.log_lengthscales).contiguous()
         self._x_scaled = (self.x_train / self._ls).contiguous()
         self._outputscale = float(torch.exp(self.params.log_outputscale))
+        self._mean_plan = (matern_ops.mean_plan(*self.alpha.shape)
+                           if self.alpha.ndim == 2 else None)
         self.alpha, self.y_scale, self.y_mean = (
             t.contiguous() for t in (self.alpha, self.y_scale, self.y_mean)
         )
@@ -112,7 +115,7 @@ class GaussianProcess:
         # (batched results equal per-request results bit for bit).
         mean = matern_ops.matern52_mean(
             x, self._ls, self._x_scaled, self.alpha, self.y_scale, self.y_mean,
-            self._outputscale,
+            self._outputscale, self._mean_plan,
         )
         if not return_var:
             return mean

@@ -184,7 +184,8 @@ COUNTERS: Dict[str, LaunchCounter] = {}
 
 def counter(name: str) -> LaunchCounter:
     """The launch counter of kernel ``name`` (created on first request)."""
-    return COUNTERS.setdefault(name, LaunchCounter(name))
+    c = COUNTERS.get(name)
+    return c if c is not None else COUNTERS.setdefault(name, LaunchCounter(name))
 
 
 def check_launch(err: int, kernel: str) -> None:

@@ -8,7 +8,9 @@ Stages, as in the reference's ``examples/tsunami_inversion.py``:
 3. 3-level MLDA chains, multiplexed by the ensemble driver through the load
    balancer onto per-level ``BatchServer`` pools;
 4. the report: posterior, per-level evaluations and acceptance, balancer
-   idle times and realised batch sizes.
+   idle times, realised batch sizes and, for remote pools, the wire/service
+   split per level; then the Fig. 6 time-series GP: 32 LHS coarse solves of
+   the probe-0 series, a GP over them, its prediction at the posterior mean.
 
 Run on the card (the default device)::
 
@@ -17,15 +19,27 @@ Run on the card (the default device)::
 
 ``--device cpu`` runs the plain PyTorch versions instead (slow at the paper
 preset; use ``--workload cpu`` there).
+
+Remote serving (``--remote host:port[,host:port]``, DESIGN.md §11): the
+level pools live in other processes, each running
+``python -m repro_torch.launch.export``, and this process dials them
+(binary framing, or UM-Bridge HTTP/JSON with ``--remote-json``) instead of
+training a GP and building pools of its own::
+
+    PYTHONPATH=src python -m repro_torch.launch.export --workload cpu \\
+        --host 127.0.0.1 --port 4242 &
+    PYTHONPATH=src python -m repro_torch.launch.tsunami --workload cpu \\
+        --remote 127.0.0.1:4242
 """
 from __future__ import annotations
 
 import argparse
 import time
 from dataclasses import replace
-from typing import Any, Callable, Dict, Optional, Sequence
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.balancer import available_policies
 from repro_torch.configs.tohoku_mlda import CONFIGS, MLDAWorkloadConfig
@@ -34,17 +48,41 @@ from repro_torch.core.diagnostics import telescoping_estimate, variance_reductio
 from repro_torch.device import resolve_device
 from repro_torch.swe import (
     TohokuScenario,
-    make_hierarchy,
-    make_level_servers,
+    build_hierarchy,
+    close_transports,
+    local_level_servers,
+    make_remote_level_servers,
     train_level0_gp,
 )
+
+# The Fig. 6 series GP, as the reference's example fits it: LHS design size
+# and seed, solves per batched call, Adam steps.
+SERIES_GP_POINTS = 32
+SERIES_GP_SEED = 7
+SERIES_GP_BATCH = 8
+SERIES_GP_STEPS = 60
 
 
 def _synchronize(device) -> None:
     if device.type == "cuda":
-        import torch
-
         torch.cuda.synchronize(device)
+
+
+def series_gp(coarse: TohokuScenario, prob, theta, *, device) -> Tuple[Any, Any]:
+    """The Fig. 6 time-series GP: ``SERIES_GP_POINTS`` LHS draws of the
+    coarse probe-0 SSHA series, solved ``SERIES_GP_BATCH`` at a time, a GP
+    over them, and its prediction at ``theta``: ``(gp, series)``."""
+    from repro_torch.core.gp import fit_gp
+    from repro_torch.core.lhs import latin_hypercube, scale_to_bounds
+
+    series_fwd = coarse.build_batch_series_forward()
+    lo, hi = prob.prior_bounds()
+    u = latin_hypercube(torch.Generator().manual_seed(SERIES_GP_SEED), SERIES_GP_POINTS, 2)
+    xs = scale_to_bounds(u, lo, hi).to(device)
+    ys = torch.cat([series_fwd(xs[i : i + SERIES_GP_BATCH])
+                    for i in range(0, SERIES_GP_POINTS, SERIES_GP_BATCH)])
+    gp = fit_gp(xs, ys, steps=SERIES_GP_STEPS, device=device)
+    return gp, gp(torch.as_tensor(np.asarray(theta), dtype=torch.float32))
 
 
 def run(
@@ -53,9 +91,15 @@ def run(
     n_chains: Optional[int] = None,
     policy: Optional[str] = None,
     device: str = "cuda",
+    remote: Sequence[str] = (),
+    remote_binary: bool = True,
     log: Callable[[str], None] = print,
 ) -> Dict[str, Any]:
-    """Run stages 1-4 for workload ``w``; return what the report prints."""
+    """Run stages 1-4 and the series GP for workload ``w``; return what the
+    report prints.  ``remote`` names ``host:port`` endpoints of
+    ``launch.export`` processes to evaluate on (binary framing, or
+    UM-Bridge JSON without ``remote_binary``) instead of in-process pools;
+    then ``gp`` is None."""
     dev = resolve_device(device)
     n_chains = n_chains or w.n_chains
     policy = policy or w.balancer_policy
@@ -64,63 +108,67 @@ def run(
     log(f"[1/4] building {w.name} hierarchy "
         f"(coarse {w.coarse_grid}, fine {w.fine_grid}) on {dev}")
     t0 = time.perf_counter()
-    fine = TohokuScenario(
-        nx=w.fine_grid[0], ny=w.fine_grid[1], t_end=w.t_end_s, device=str(dev)
-    )
-    coarse = TohokuScenario(
-        nx=w.coarse_grid[0], ny=w.coarse_grid[1], t_end=w.t_end_s, device=str(dev)
-    )
-    h = make_hierarchy(fine=fine, coarse=coarse)
+    h = build_hierarchy(w, dev)
     prob = h["problem"]
     _synchronize(dev)
     walls["hierarchy_s"] = time.perf_counter() - t0
     log(f"      y_obs = {np.round(prob.y_obs, 4)} (truth at {prob.theta_true}); "
         f"steps coarse {h['forward_coarse'].n_steps}, fine {h['forward_fine'].n_steps}")
 
-    log(f"[2/4] training level-0 GP on {w.gp_train_points} LHS coarse solves "
-        f"({w.gp_opt_steps} Adam steps)")
+    gp = None
     t0 = time.perf_counter()
-    gp = train_level0_gp(
-        h["forward_coarse_batch"], prob, n_train=w.gp_train_points,
-        steps=w.gp_opt_steps,
-    )
-    _synchronize(dev)
-    walls["gp_train_s"] = time.perf_counter() - t0
-    log(f"      {walls['gp_train_s']:.1f}s")
-    servers = make_level_servers(
-        w, gp, h["forward_coarse"], h["forward_fine"],
-        batch_forwards=(
-            None, h["forward_coarse_batch"], h["forward_fine_batch"]
-        ) if w.batch_solves else None,
-    )
+    if remote:
+        # The exporting processes own the level pools (GP included): no
+        # local surrogate training, just transports + remote replicas.
+        log(f"[2/4] remote serving: dialing {list(remote)} "
+            f"({'binary' if remote_binary else 'UM-Bridge JSON'} mode)")
+        servers = make_remote_level_servers(w, remote, binary=remote_binary)
+        walls["connect_s"] = time.perf_counter() - t0
+        log(f"      {len(servers)} remote servers: "
+            f"{sorted(t for s in servers for t in s.capacity_tags)}")
+    else:
+        log(f"[2/4] training level-0 GP on {w.gp_train_points} LHS coarse solves "
+            f"({w.gp_opt_steps} Adam steps)")
+        gp = train_level0_gp(
+            h["forward_coarse_batch"], prob, n_train=w.gp_train_points,
+            steps=w.gp_opt_steps,
+        )
+        _synchronize(dev)
+        walls["gp_train_s"] = time.perf_counter() - t0
+        log(f"      {walls['gp_train_s']:.1f}s")
+        servers = local_level_servers(w, gp, h)
 
     log(f"[3/4] MLDA x {n_chains} chains via the ensemble driver "
         f"(policy={policy}, speculative={w.speculative_prefetch}, "
         f"batch_solves={w.batch_solves}, {w.n_fine_samples} fine samples each)")
-    runner, lb = balanced_mlda(
-        servers,
-        prob.log_likelihood,
-        prob.log_prior,
-        GaussianRandomWalk(w.rw_step_km),
-        list(w.subchain_lengths),
-        policy=policy,
-        batchable_levels=w.batchable_levels,
-        n_chains=n_chains,
-        ensemble_seed=w.ensemble_seed,
-        speculative=w.speculative_prefetch,
-        as_runner=True,
-        **w.balancer_kwargs(),
-        **w.runner_kwargs(),
-    )
     try:
-        t0 = time.perf_counter()
-        result = runner.run(
-            lambda c, rng: prob.sample_prior(rng)[0] * 0.5, w.n_fine_samples
+        runner, lb = balanced_mlda(
+            servers,
+            prob.log_likelihood,
+            prob.log_prior,
+            GaussianRandomWalk(w.rw_step_km),
+            list(w.subchain_lengths),
+            policy=policy,
+            batchable_levels=w.batchable_levels,
+            n_chains=n_chains,
+            ensemble_seed=w.ensemble_seed,
+            speculative=w.speculative_prefetch,
+            as_runner=True,
+            **w.balancer_kwargs(),
+            **w.runner_kwargs(),
         )
-        walls["sampling_s"] = time.perf_counter() - t0
-        summary = lb.summary()
+        try:
+            t0 = time.perf_counter()
+            result = runner.run(
+                lambda c, rng: prob.sample_prior(rng)[0] * 0.5, w.n_fine_samples
+            )
+            walls["sampling_s"] = time.perf_counter() - t0
+            summary = lb.summary()
+        finally:
+            lb.shutdown()  # joins the dispatcher + worker pool; no leaked threads
     finally:
-        lb.shutdown()  # joins the dispatcher + worker pool; no leaked threads
+        if remote:  # one shared transport per endpoint: close each once
+            close_transports(servers)
 
     log(f"[4/4] results ({walls['sampling_s']:.1f}s sampling wall time)")
     burn = max(2, w.n_fine_samples // 5)
@@ -156,6 +204,21 @@ def run(
     if summary["batch_histogram"]:
         log(f"      realised batch sizes {{level: {{size: count}}}}: "
             f"{summary['batch_histogram']}")
+    if summary.get("wire_split"):
+        log("      wire vs remote service (EWMA ms per call):")
+        for key, wsp in sorted(summary["wire_split"].items()):
+            log(f"        {key}: wire={wsp['wire_ewma_s'] * 1e3:.2f}ms "
+                f"service={wsp['service_ewma_s'] * 1e3:.2f}ms "
+                f"({wsp['calls']} calls)")
+
+    # Fig. 6 analogue: GP over the full probe-0 time series.
+    log("      fitting Fig. 6 time-series GP (probe 21418 analogue)")
+    t0 = time.perf_counter()
+    ts_gp, post_series = series_gp(h["coarse"], prob, post_mean, device=dev)
+    _synchronize(dev)
+    walls["series_gp_s"] = time.perf_counter() - t0
+    log(f"      reconstructed series: len={post_series.shape[0]}, "
+        f"max SSHA={float(post_series.max()):.3f} m ({walls['series_gp_s']:.1f}s)")
     return {
         "y_obs": prob.y_obs,
         "posterior_mean": post_mean,
@@ -166,6 +229,8 @@ def run(
         "walls": walls,
         "gp": gp,
         "hierarchy": h,
+        "series_gp": ts_gp,
+        "posterior_series": post_series,
     }
 
 
@@ -178,12 +243,18 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     ap.add_argument("--policy", default="", choices=[""] + available_policies(),
                     help="scheduling policy (default: the workload's)")
     ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
+    ap.add_argument("--remote", default="",
+                    help="comma-separated host:port endpoints (repro_torch.launch.export "
+                    "processes) to evaluate on instead of in-process pools")
+    ap.add_argument("--remote-json", action="store_true",
+                    help="use the UM-Bridge HTTP/JSON interop mode instead of binary framing")
     args = ap.parse_args(argv)
     w = CONFIGS[args.workload]
     if args.fine_samples:
         w = replace(w, n_fine_samples=args.fine_samples)
+    remote = tuple(a.strip() for a in args.remote.split(",") if a.strip())
     return run(w, n_chains=args.chains or None, policy=args.policy or None,
-               device=args.device)
+               device=args.device, remote=remote, remote_binary=not args.remote_json)
 
 
 if __name__ == "__main__":

@@ -2,11 +2,17 @@
 from .scenario import (
     TohokuInverseProblem,
     TohokuScenario,
+    build_hierarchy,
     make_hierarchy,
     observe,
     train_level0_gp,
 )
-from .servers import make_level_servers
+from .servers import (
+    close_transports,
+    local_level_servers,
+    make_level_servers,
+    make_remote_level_servers,
+)
 from .solver import SWEConfig, SWEState, lake_at_rest_error, make_solver, step
 
 __all__ = [
@@ -14,9 +20,13 @@ __all__ = [
     "SWEState",
     "TohokuInverseProblem",
     "TohokuScenario",
+    "build_hierarchy",
+    "close_transports",
     "lake_at_rest_error",
+    "local_level_servers",
     "make_hierarchy",
     "make_level_servers",
+    "make_remote_level_servers",
     "make_solver",
     "observe",
     "step",

@@ -128,41 +128,54 @@ class TohokuScenario:
         return torch.as_tensor(theta, dtype=torch.float32).to(self.torch_device)
 
     # -- forward model --------------------------------------------------------
+    def _single(self, eager: Callable, name: str, n_steps: int, dt: float) -> Callable:
+        """``eager`` (theta (2,) -> tensor) as one CUDA-graph replay a call
+        on the card: a :class:`GraphBatchCache` of batch 1 keyed ``(ny,
+        nx)``, one graph per calling thread; eager on the CPU.
+        ``forward.eager`` is ``eager`` itself, ``forward.executables`` the
+        graphs."""
+        cache = GraphBatchCache(
+            lambda th: eager(th[0]), key=(self.ny, self.nx), pad="zeros",
+            name=f"{name} {self.ny}x{self.nx}",
+        )
+
+        def forward(theta) -> torch.Tensor:
+            out, _ = cache(self._theta(theta).reshape(1, 2))
+            return out
+
+        forward.n_steps = n_steps
+        forward.dt = dt
+        forward.device = self.torch_device
+        forward.eager = eager
+        forward.executables = cache.executables
+        return forward
+
     def build_forward(self) -> Callable:
         """theta (2,) -> observables (4,): [hmax_1, tarr_1, hmax_2, tarr_2].
 
-        On the card the solve steps through the directional sweep kernel.
+        On the card the solve steps through the directional sweep kernel, and
+        a call replays it as one CUDA graph (``forward.eager`` issues every
+        launch from Python).
         """
         solver = make_solver(self.cfg, self.bathymetry(), self.probe_indices())
         n_steps, dt = solver.n_steps, solver.dt
         t_norm = n_steps * dt
         X, Y = self._grid()
 
-        def forward(theta) -> torch.Tensor:
+        def eager(theta) -> torch.Tensor:
             series, _ = solver(self._bump(X, Y, self._theta(theta)))
             return observe(series, dt, t_norm, self.arrival_threshold)
 
-        forward.n_steps = n_steps
-        forward.dt = dt
-        forward.device = self.torch_device
-        return forward
+        return self._single(eager, "single forward", n_steps, dt)
 
-    def build_batch_forward(self) -> Callable:
-        """thetas (B, 2) -> observables (B, 4) in ONE batched solve.
-
-        The ``BatchServer`` handler of this level: displacements per member,
-        one batched time loop (on the card one fused-kernel launch per step
-        for the whole batch), then the observation operator per member.  A
-        row does not depend on B; on the CPU it equals
-        ``build_forward()(thetas[i])`` bit for bit.
-
-        The whole forward runs under one :class:`GraphBatchCache` keyed
-        ``(ny, nx)``, padding by repeating member 0 (a valid theta): on the
-        card a call is one copy in, one graph replay and one copy out, and
-        the solve inside the graph is the uncached stacked solve.
-        ``forward.eager`` is the same forward, unpadded, with every launch
-        issued from Python; ``forward.executables`` holds the graphs.
-        """
+    def _batched(self, readout: Callable, name: str) -> Callable:
+        """thetas (B, 2) -> ``readout(series, dt, t_norm)`` of ONE batched
+        solve, under one :class:`GraphBatchCache` keyed ``(ny, nx)`` that
+        pads by repeating member 0 (a valid theta): on the card a call is
+        one copy in, one graph replay and one copy out, and the solve
+        inside the graph is the uncached stacked solve.  ``forward.eager``
+        is the same forward, unpadded, with every launch issued from
+        Python; ``forward.executables`` holds the graphs."""
         solver = make_solver(
             self.cfg, self.bathymetry(), self.probe_indices(), batch=True
         )
@@ -174,13 +187,11 @@ class TohokuScenario:
             # One bump per member: the same shapes as the single forward.
             eta0 = torch.stack([self._bump(X, Y, t) for t in thetas])
             series, _ = solve(eta0)  # (B, n_steps, n_probes)
-            return torch.stack(
-                [observe(s, dt, t_norm, self.arrival_threshold) for s in series]
-            )
+            return readout(series, dt, t_norm)
 
         cache = GraphBatchCache(
             stacked, key=(self.ny, self.nx), pad="repeat",
-            name=f"forward {self.ny}x{self.nx}",
+            name=f"{name} {self.ny}x{self.nx}",
         )
 
         def forward(thetas) -> torch.Tensor:
@@ -194,18 +205,44 @@ class TohokuScenario:
         forward.executables = cache.executables
         return forward
 
+    def build_batch_forward(self) -> Callable:
+        """thetas (B, 2) -> observables (B, 4) in ONE batched solve.
+
+        The ``BatchServer`` handler of this level: displacements per member,
+        one batched time loop (on the card one fused-kernel launch per step
+        for the whole batch), then the observation operator per member.  A
+        row does not depend on B; on the CPU it equals
+        ``build_forward()(thetas[i])`` bit for bit.  Graphs as
+        :meth:`_batched` says.
+        """
+        thr = self.arrival_threshold
+        return self._batched(
+            lambda series, dt, t_norm: torch.stack(
+                [observe(s, dt, t_norm, thr) for s in series]
+            ),
+            "forward",
+        )
+
     def build_series_forward(self) -> Callable:
-        """theta -> full probe-0 SSHA time series (for the Fig. 6 GP)."""
+        """theta -> full probe-0 SSHA time series (n_steps,), through the
+        sweep kernel, one CUDA-graph replay a call on the card (as
+        :meth:`build_forward`)."""
         solver = make_solver(self.cfg, self.bathymetry(), self.probe_indices())
 
-        def forward(theta) -> torch.Tensor:
+        def eager(theta) -> torch.Tensor:
             series, _ = solver(self.displacement(theta))
             return series[:, 0]
 
-        forward.n_steps = solver.n_steps
-        forward.dt = solver.dt
-        forward.device = self.torch_device
-        return forward
+        return self._single(eager, "single series", solver.n_steps, solver.dt)
+
+    def build_batch_series_forward(self) -> Callable:
+        """thetas (B, 2) -> (B, n_steps) probe-0 SSHA series in ONE batched
+        solve: the Fig. 6 series GP's design solves.  A row does not depend
+        on B; on the CPU it equals ``build_series_forward()(thetas[i])`` bit
+        for bit.  Graphs as :meth:`_batched` says."""
+        return self._batched(
+            lambda series, dt, t_norm: series[:, :, 0].contiguous(), "series"
+        )
 
 
 # ---------------------------------------------------------------------------
@@ -282,6 +319,21 @@ def make_hierarchy(
         "forward_fine_batch": fine.build_batch_forward(),
         "forward_coarse_batch": coarse.build_batch_forward(),
     }
+
+
+def build_hierarchy(w, device) -> Dict[str, object]:
+    """:func:`make_hierarchy` over workload ``w``'s coarse and fine
+    scenarios on ``device`` (a ``MLDAWorkloadConfig``'s grids and end time);
+    the coarse scenario is kept as ``h["coarse"]`` for the series GP."""
+    fine = TohokuScenario(
+        nx=w.fine_grid[0], ny=w.fine_grid[1], t_end=w.t_end_s, device=str(device)
+    )
+    coarse = TohokuScenario(
+        nx=w.coarse_grid[0], ny=w.coarse_grid[1], t_end=w.t_end_s, device=str(device)
+    )
+    h = make_hierarchy(fine=fine, coarse=coarse)
+    h["coarse"] = coarse
+    return h
 
 
 def train_level0_gp(

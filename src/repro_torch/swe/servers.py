@@ -76,3 +76,71 @@ def make_level_servers(
     for i in range(max(w.servers_per_level.get(2, 1), 1)):
         servers.append(server(2, f_fine, f"fine-{i}", "level2"))
     return servers
+
+
+def local_level_servers(w, gp, h) -> List[Server]:
+    """:func:`make_level_servers` over the GP and a :func:`build_hierarchy`
+    ``h``: the in-process level pools (batched forwards with
+    ``w.batch_solves``)."""
+    return make_level_servers(
+        w, gp, h["forward_coarse"], h["forward_fine"],
+        batch_forwards=(
+            None, h["forward_coarse_batch"], h["forward_fine_batch"]
+        ) if w.batch_solves else None,
+    )
+
+
+def make_remote_level_servers(
+    w,
+    addresses: Sequence[str],
+    *,
+    binary: Optional[bool] = None,
+) -> List[Server]:
+    """Remote replicas of the level pools: the client half of a
+    two-process deployment (DESIGN.md §11).
+
+    Each address is a ``host:port`` endpoint running
+    ``python -m repro_torch.launch.export`` (a
+    :class:`~repro_torch.net.server.ServerShell` over the pool
+    :func:`make_level_servers` builds there).  One shared transport per
+    endpoint (its pipelined connection pool multiplexes every level tag)
+    and one :class:`~repro_torch.net.client.RemoteBatchServer` per exported
+    tag, so the dispatcher's coalescing path ships a stacked ``(B, ...)``
+    batch as ONE framed call.  Replicated tags across endpoints behave as
+    replicated local servers: the policy balances across them, and a dead
+    endpoint's in-flight members requeue onto the survivors.  An endpoint
+    that cannot be reached raises :class:`~repro_torch.net.TransportError`;
+    nothing falls back to an in-process pool.
+
+    ``binary=None`` takes ``w.remote_binary``; transports must be closed
+    by the caller (``server.transport.close()`` once per distinct
+    transport) after the balancer shuts down.
+    """
+    from repro_torch.net import make_transport, remote_servers_for
+
+    kwargs = dict(w.remote_kwargs())
+    if binary is not None:
+        kwargs["binary"] = binary
+    timeout = kwargs.get("read_timeout")
+    servers: List[Server] = []
+    for addr in addresses:
+        transport = make_transport(addr, **kwargs)
+        servers.extend(
+            remote_servers_for(
+                transport,
+                batch=bool(getattr(w, "batch_solves", True)),
+                max_batch=int(getattr(w, "max_batch", 8)) or None,
+                name_prefix=f"remote-{addr}",
+                request_timeout=timeout,
+            )
+        )
+    return servers
+
+
+def close_transports(servers: Sequence[Server]) -> int:
+    """Close each distinct transport of the remote ``servers`` once (an
+    endpoint's replicas share one); return how many were closed."""
+    transports = {id(s.transport): s.transport for s in servers if hasattr(s, "transport")}
+    for tr in transports.values():
+        tr.close()
+    return len(transports)

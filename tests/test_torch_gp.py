@@ -167,6 +167,25 @@ def test_predict_goes_through_the_mean_wrapper(monkeypatch):
     assert calls == ["matern52_mean", "matern52_scaled"]
 
 
+def test_predict_passes_the_plan_made_once(monkeypatch):
+    """The GP plans its mean kernel once, at construction, for its (n, p),
+    and hands that plan to every ``matern52_mean`` call."""
+    _, f = _reference_fields(3)
+    made = []
+    plan = matern_ops.mean_plan
+    monkeypatch.setattr(matern_ops, "mean_plan", lambda n, p: (made.append((n, p)), plan(n, p))[1])
+    gt = gp_from_arrays(f, device=CPU)
+    n, p = gt.alpha.shape
+    assert made == [(n, p)]
+    seen = []
+    mean = matern_ops.matern52_mean
+    monkeypatch.setattr(matern_ops, "matern52_mean",
+                        lambda *a: (seen.append(a[-1]), mean(*a))[1])
+    for _ in range(3):
+        gt.batch_call(torch.zeros((2, 2)))
+    assert seen == [plan(n, p)] * 3 and made == [(n, p)]
+
+
 def test_batch_call_rows_bit_identical():
     x, y = _data(48, seed=5)
     gp = fit_gp(x, y, steps=20, device=CPU)
@@ -221,3 +240,37 @@ def test_latin_hypercube_strata():
         assert sorted(col.tolist()) == list(range(64))
     x = scale_to_bounds(u, np.array([-200.0, -200.0, 0.0]), np.array([200.0, 200.0, 1.0]))
     assert x.dtype == torch.float32 and float(x[:, 0].min()) >= -200.0
+
+
+def _wide_fields(n, p, steps):
+    """The reference GP fitted on ``n`` points with ``p`` smooth outputs
+    (series-like in the output index), and its fields as numpy arrays."""
+    rng = np.random.default_rng(n + p)
+    x = rng.uniform(-200, 200, (n, 2)).astype(np.float32)
+    t = np.linspace(0.0, 1.0, p, dtype=np.float32)
+    y = (np.sin(x[:, :1] / 90 + 6 * t) * np.exp(-((x[:, 1:] / 150) ** 2) - t)).astype(np.float32)
+    gj = jax_fit_gp(x, y, steps=steps)
+    fields = {
+        "x_train": gj.x_train, "y_train": gj.y_train, "y_mean": gj.y_mean,
+        "y_scale": gj.y_scale, "log_lengthscales": gj.params.log_lengthscales,
+        "log_outputscale": gj.params.log_outputscale, "log_noise": gj.params.log_noise,
+        "chol": gj.chol, "alpha": gj.alpha,
+    }
+    return x, y, gj, {k: np.asarray(v) for k, v in fields.items()}
+
+
+@pytest.mark.parametrize("n,p,steps", [(32, 519, 10), (4096, 4, 0)])
+def test_predict_over_the_shared_memory_budget_matches_reference(n, p, steps):
+    """Shapes whose summation tree exceeds the mean kernel's shared memory
+    (the Fig. 6 series GP's p = 519; n = 4096 training points): the port's
+    ``fit_gp(...).predict`` returns them, and its prediction from the
+    reference's fitted fields is within atol 1e-4 of the reference's."""
+    x, y, gj, f = _wide_fields(n, p, steps)
+    q = np.random.default_rng(p).uniform(-150, 150, (3, 2)).astype(np.float32)
+    gt = gp_from_arrays(f, device=CPU)
+    got = gt.predict(torch.from_numpy(q))
+    assert got.shape == (3, p)
+    np.testing.assert_allclose(got.numpy(), np.asarray(gj.predict(jnp.asarray(q))),
+                               rtol=0, atol=1e-4)
+    own = fit_gp(x, y, steps=0, device=CPU).predict(torch.from_numpy(q))
+    assert own.shape == (3, p) and bool(torch.isfinite(own).all())

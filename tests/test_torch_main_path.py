@@ -114,12 +114,17 @@ def test_tsunami_run_reports_every_stage(capsys):
     minutes of CPU work)."""
     res = run(TINY, n_chains=2, device="cpu", log=print)
     printed = capsys.readouterr().out
-    for stage in ("[1/4]", "[2/4]", "[3/4]", "[4/4]", "balancer idle"):
+    for stage in ("[1/4]", "[2/4]", "[3/4]", "[4/4]", "balancer idle",
+                  "reconstructed series: len="):
         assert stage in printed
     assert res["y_obs"].shape == (4,) and np.isfinite(res["y_obs"]).all()
     assert res["chains"].shape == (2, TINY.n_fine_samples, 2)
     assert np.isfinite(res["posterior_mean"]).all()
-    assert set(res["walls"]) == {"hierarchy_s", "gp_train_s", "sampling_s"}
+    assert set(res["walls"]) == {"hierarchy_s", "gp_train_s", "sampling_s", "series_gp_s"}
+    n_steps = res["hierarchy"]["forward_coarse"].n_steps
+    assert res["posterior_series"].shape == (n_steps,)
+    assert bool(torch.isfinite(res["posterior_series"]).all())
+    assert res["series_gp"].y_train.shape == (32, n_steps)
 
 
 def test_tsunami_cli_rejects_unknown_workload(capsys):

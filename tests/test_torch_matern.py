@@ -177,16 +177,94 @@ def test_mean_wrapper_rejects_other_dtypes(i):
 @pytest.mark.parametrize("n,p,fits", [(512, 4, True), (2048, 6, True), (2048, 7, False),
                                       (3000, 3, True), (3000, 4, False), (12288, 1, False),
                                       (8192, 1, True)])
-def test_mean_wrapper_refuses_trees_over_the_shared_memory_limit(n, p, fits):
-    """The tree (width x p floats) must fit the block's shared memory; the
-    wrapper raises before any launch, on any device."""
-    args = _mean_case(1, n, 2, p)
+def test_mean_wrapper_takes_trees_over_the_shared_memory_budget(n, p, fits):
+    """No shape is refused: trees that fit the budget whole and trees that
+    do not (``fits``) both return ``(1, p)`` with the bits of the matrix
+    followed by the contraction, on the CPU."""
+    x, ls, xs, alpha, ys, ym = _mean_case(1, n, 2, p)
     assert (4 * tree_width(n) * p <= ops.MEAN_SMEM_BYTES) == fits
-    if fits:
-        assert ops.matern52_mean(*args, 1.0).shape == (1, p)
-    else:
-        with pytest.raises(ValueError, match="shared memory"):
-            ops.matern52_mean(*args, 1.0)
+    got = ops.matern52_mean(x, ls, xs, alpha, ys, ym, 1.0)
+    ks = ops.matern52_scaled((x / ls).contiguous(), xs, 1.0)
+    assert got.shape == (1, p)
+    assert torch.equal(got, posterior_mean_from_matrix(ks, alpha, ys, ym))
+
+
+PLAN_CASES = [(512, 4), (32, 519), (4096, 4), (5000, 37), (2048, 7), (3000, 4), (12288, 1),
+              (8192, 1), (1, 1), (0, 3), (10**6, 3), (20000, 100), (300, 4), (20, 40)]
+
+
+@pytest.mark.parametrize("n,p", PLAN_CASES)
+def test_mean_plan_fits_the_budget(n, p):
+    """The plan's trees fit the budget, its tiles cover p, and register
+    levels come only with tiles of at most the kernel's register tile."""
+    qt, levels = ops.mean_plan(n, p)
+    assert 1 <= qt <= max(p, 1) and 0 <= levels <= 30
+    assert (tree_width(n) >> levels) >= 1
+    assert 4 * (tree_width(n) >> levels) * qt <= ops.MEAN_SMEM_BYTES
+    tiles = -(-p // qt)
+    assert (tiles - 1) * qt < p <= tiles * qt or p == 0
+    if levels:
+        assert qt <= ops.MEAN_REG_TILE
+        assert 4 * (tree_width(n) >> (levels - 1)) * qt > ops.MEAN_SMEM_BYTES
+
+
+def test_mean_plan_limits_match_the_kernel_source():
+    """The plan's register tile is the kernel's, and its levels stay within
+    the kernel's stack of partial sums."""
+    import re
+
+    from repro_torch.kernels import build
+
+    src = (build.CSRC / "matern.cu").read_text()
+    assert int(re.search(r"constexpr int kRegTile = (\d+);", src).group(1)) == ops.MEAN_REG_TILE
+    max_levels = int(re.search(r"constexpr int kMaxLevels = (\d+);", src).group(1))
+    assert ops.mean_plan(2**30, 7)[1] <= max_levels
+
+
+@pytest.mark.parametrize("n,p,plan", [(512, 4, (4, 0)), (32, 519, (260, 0)), (4096, 4, (4, 1)),
+                                      (5000, 37, (4, 2))])
+def test_mean_plan_at_the_checked_shapes(n, p, plan):
+    """The main path's shape keeps one tile and no register level (the
+    kernel's path before the repair); the Fig. 6 shape takes two tiles,
+    n = 4096 one register level, and (5000, 37) both means at once."""
+    assert ops.mean_plan(n, p) == plan
+
+
+def _kernel_order_sum(terms: torch.Tensor, levels: int) -> torch.Tensor:
+    """The mean kernel's summation of ``terms`` (n, q) over n, written out:
+    each slot's register levels (terms j + m width in bit-reversed order of
+    m, merged on a stack), then the shared-memory halving tree."""
+    n, nq = terms.shape
+    width = tree_width(n) >> levels
+    slots = []
+    for j in range(width):
+        stack = []
+        for r in range(1 << levels):
+            m = int(format(r, f"0{levels}b")[::-1], 2) if levels else 0
+            jj = j + m * width
+            stack.append(terms[jj] if jj < n else torch.zeros(nq))
+            c = r + 1
+            while c % 2 == 0:
+                top = stack.pop()
+                stack[-1] = stack[-1] + top
+                c //= 2
+        slots.append(stack[0])
+    s = torch.stack(slots)
+    while s.shape[0] > 1:
+        half = s.shape[0] // 2
+        s = s[:half] + s[half:]
+    return s[0]
+
+
+@pytest.mark.parametrize("n,levels", [(n, lv) for n in (1, 3, 17, 100, 300, 513)
+                                      for lv in (0, 1, 2, 4) if tree_width(n) >> lv >= 1])
+def test_register_levels_keep_the_halving_order(n, levels):
+    """The kernel's register levels followed by its tree add the same pairs
+    in the same order as ``fixed_order_sum``: the same bits, on terms of
+    widely different sizes (where another order would change them)."""
+    g = torch.Generator().manual_seed(n * 10 + levels)
+    terms = torch.randn((n, 3), generator=g) * torch.exp(4 * torch.randn((n, 1), generator=g))
+    assert torch.equal(_kernel_order_sum(terms, levels), fixed_order_sum(terms, 0))
 
 
 @pytest.fixture
@@ -217,9 +295,10 @@ def test_mean_kernel_matches_plain_on_card(card, B, n, d, p):
     the contraction on the card."""
     args = [t.to(card) for t in _mean_case(B, n, d, p)]
     x, ls, xs, alpha, ys, ym = args
-    before = ops.MEAN_LAUNCHES.value
+    before, before_p = ops.MEAN_LAUNCHES.value, ops.mean_launches_at(p).value
     got = ops.matern52_mean(*args, 1.3)
     assert ops.MEAN_LAUNCHES.value == before + 1
+    assert ops.mean_launches_at(p).value == before_p + 1
     want = matern52_mean_ref(*args, 1.3)
     bound = 5e-6 * alpha.abs().sum(0) * ys
     assert bool(((got - want).abs() <= bound).all())

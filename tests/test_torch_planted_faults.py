@@ -80,6 +80,16 @@ def test_matern_fault_lies_in_the_mean_kernel_tree():
     assert source == "matern.cu" and old in loop and old != new
 
 
+def test_matern_register_fault_lies_in_the_register_levels():
+    """The second Matérn fault edits the loop over a slot's terms in the
+    register levels, which only trees over the shared-memory budget run."""
+    source, old, new = FAULTS["mean_register_level_last_term_dropped"]
+    kernel = _span(_source(source), "matern52_mean_kernel(", "}  // namespace")
+    registers = _span(kernel, "// The register levels", "__syncthreads();")
+    assert source == "matern.cu" and old in registers and old != new
+    assert old not in _span(kernel, "if constexpr (!kRegLevels) {", "} else {")
+
+
 def test_sweep_is_the_tile_kernel_in_one_direction():
     """The per-cell sweep is gone: the sweep kernel is a template on the
     direction and the tile height, over the fused step's shared tile."""
