@@ -58,6 +58,22 @@ Phases (any failure exits non-zero; there is no CPU path):
    level has a wire/service split, the kernels launch, the chains are
    finite, and 8 thetas a level through ``RemoteBatchServer`` equal the
    in-process server's rows bit for bit in both protocols;
+4c. the device-resident MLDA ensemble on phase 4's hierarchy and GP:
+   (a) the fused ensemble (``advance``, one captured graph a top-level
+   step) with ``[lp_gp, lp_coarse]`` (``swe.device_densities``), subchain
+   ``[10]``, 5 chains padded to 8, 8 steps, and the reference test's three
+   toy hierarchies, against step machines on the card (``MLDASampler`` with
+   ``CounterStream`` draws and the densities at B = 1): theta bit for bit,
+   counts equal; (b) the coupled mode, ``balanced_mlda(device_resident=True)``
+   with the fine BatchServers only, 5 chains x 150 fine samples: fine
+   samples/s, ``device_seconds``, fine-pool utilization, the balancer's idle
+   times, both kernels' launches (mostly from graph replays) and the
+   propose graph's wall; (c) chain scaling, a GP-only fused ensemble at C =
+   1, 4, 16, 64 (512 steps) against C step machines (64 steps); (d) the
+   model protocol: the quickstart's two halves (``launch.quickstart``),
+   MALA through separate value and gradient pools of TorchModels, their
+   gradient and Jacobian against autograd on the CPU, and a gradient
+   through the Matérn kernel refused;
 5. the LM slice's prefill: qwen2-0.5b at full width in bf16 (seeded random
    weights) on one 32768-token prompt, counters at 0 just before; the
    tensor-core flash kernel must launch once per layer, the fp32 one never; the last position's logits must be
@@ -1330,6 +1346,288 @@ def phase_remote(torch, w, res):
 
 
 # ---------------------------------------------------------------------------
+# phase 4c: the device-resident ensemble and the model protocol
+# ---------------------------------------------------------------------------
+ENSEMBLE_CHAINS = 5  # (a) and (b): the preset's chain count, padded to 8
+ENSEMBLE_BITS_STEPS = 8  # (a): top-level steps held bit for bit
+ENSEMBLE_FINE_SAMPLES = 150  # (b): fine samples per chain, the preset's own
+ENSEMBLE_CHUNK = 16  # (b): device_chunk, as the reference's preset
+SCALING_CHAINS = (1, 4, 16, 64)  # (c)
+SCALING_DEVICE_STEPS = 512
+SCALING_MACHINE_STEPS = 64
+GRAD_ATOL = 1e-5  # (d): TorchModel derivatives on the card vs autograd on the CPU
+
+
+def _rowsum(x):
+    """Sum over the last axis column by column: the same order at every B."""
+    out = x[:, 0]
+    for j in range(1, x.shape[1]):
+        out = out + x[:, j]
+    return out
+
+
+def _toy_lp0(t):
+    r = t - 0.3
+    return -0.7 * _rowsum(r * r)
+
+
+def _toy_lp1(t):
+    return -0.5 * _rowsum(t * t)
+
+
+def _toy_lp2(t):
+    r = t - 0.1
+    return -0.45 * _rowsum(r * r)
+
+
+# The reference's three toy hierarchies (tests/test_device_ensemble.py).
+TOY_HIERARCHIES = (((_toy_lp1,), ()), ((_toy_lp0, _toy_lp1), (3,)),
+                   ((_toy_lp0, _toy_lp2, _toy_lp1), (3, 2)))
+
+
+def _host_twins(torch, densities, subchains, scale, theta0, n, seed):
+    """C step machines on the card: ``MLDASampler`` over the densities at
+    B = 1, drawing from ``CounterStream`` on the card, proposing with
+    ``DeviceMatchedRandomWalk``.  Returns (chains float32, counts)."""
+    import numpy as np
+
+    from repro_torch.core import (CounterStream, DeviceMatchedRandomWalk, MLDASampler,
+                                  chain_keys)
+
+    def host(lp):
+        return lambda t: float(lp(torch.as_tensor(np.asarray(t, np.float32),
+                                                  device="cuda")[None])[0])
+
+    keys = chain_keys(seed, theta0.shape[0], "cuda")
+    chains, counts = [], []
+    for c in range(theta0.shape[0]):
+        machine = MLDASampler([host(lp) for lp in densities],
+                              DeviceMatchedRandomWalk(scale), list(subchains))
+        chains.append(np.asarray(machine.sample(theta0[c], n, CounterStream(keys[c])),
+                                 np.float32))
+        counts.append([(r.n_accepted, r.n_proposed, r.n_evals) for r in machine.levels])
+    return np.stack(chains), counts
+
+
+def _fused(densities, subchains, scale, theta0, n, seed):
+    from repro_torch.core import make_device_ensemble
+
+    ens = make_device_ensemble(list(densities), list(subchains), scale, device="cuda")
+    state, thetas, _ = ens.advance(ens.init(theta0, seed=seed), n)
+    counts = state.counts.cpu().numpy()
+    return thetas.cpu().numpy(), [[tuple(int(v) for v in counts[c, lvl])
+                                   for lvl in range(counts.shape[1])]
+                                  for c in range(counts.shape[0])]
+
+
+def _bits_equal(torch, label, densities, subchains, scale, theta0, n, seed) -> None:
+    import numpy as np
+
+    t0 = time.perf_counter()
+    dev, dev_counts = _fused(densities, subchains, scale, theta0, n, seed)
+    t1 = time.perf_counter()
+    ref, ref_counts = _host_twins(torch, densities, subchains, scale, theta0, n, seed)
+    t2 = time.perf_counter()
+    unequal_bits = int((dev.view(np.uint32) != ref.view(np.uint32)).sum())
+    print(f"[4c] (a) {label}: C = {theta0.shape[0]}, {n} steps, subchains {list(subchains)}: "
+          f"fused vs step machines, unequal theta bits {unequal_bits}, counts equal "
+          f"{dev_counts == ref_counts} (fused {t1 - t0:.2f} s incl. capture, machines "
+          f"{t2 - t1:.2f} s); chain 0 counts {dev_counts[0]}")
+    if unequal_bits or dev_counts != ref_counts or not np.isfinite(dev).all():
+        fail(f"(a) {label}: the fused ensemble differs from the step machines")
+
+
+def phase_device_ensemble(torch, w, rows, res=None, smi: str = "") -> None:
+    """Phase 4c: the device-resident ensemble at the ``paper`` preset's
+    widths, and the model protocol, on the card.  Reuses phase 4's
+    hierarchy and GP (``res``); builds them when run alone."""
+    import numpy as np
+
+    from repro_torch.balancer import LoadBalancer, Server
+    from repro_torch.core import (BalancedGradDensity, GaussianRandomWalk, MLDASampler,
+                                  TorchModel, balanced_mlda, make_device_ensemble, mala)
+    from repro_torch.kernels import build
+    from repro_torch.launch import quickstart
+    from repro_torch.swe import build_hierarchy, device_densities, local_level_servers
+    from repro_torch.swe import train_level0_gp
+
+    t_phase = time.perf_counter()
+    if res is None:
+        h = build_hierarchy(w, "cuda")
+        gp = train_level0_gp(h["forward_coarse_batch"], h["problem"],
+                             n_train=w.gp_train_points, steps=w.gp_opt_steps)
+    else:
+        h, gp = res["hierarchy"], res["gp"]
+    prob = h["problem"]
+    lp_gp, lp_coarse = device_densities(prob, gp, h["forward_coarse_batch"])
+    rng = np.random.default_rng(w.ensemble_seed)
+    theta0 = (prob.sample_prior(rng, ENSEMBLE_CHAINS) * 0.5).astype(np.float32)
+    print(f"[4c] card: {smi}")
+
+    # (a) bit identity on the card: the paper's densities, then the toys.
+    _bits_equal(torch, "[lp_gp, lp_coarse]", (lp_gp, lp_coarse), w.subchain_lengths[:1],
+                w.rw_step_km, theta0, ENSEMBLE_BITS_STEPS, w.ensemble_seed)
+    toy0 = np.linspace(-1.0, 1.0, 6, dtype=np.float32).reshape(3, 2)
+    for densities, subchains in TOY_HIERARCHIES:
+        _bits_equal(torch, f"toy {len(densities)}-level", densities, subchains, 0.8, toy0,
+                    25, 7)
+
+    # (b) the coupled mode: GP and coarse on the card, fine through the pools.
+    servers = [s for s in local_level_servers(w, gp, h) if "level2" in s.capacity_tags]
+    runner, lb = balanced_mlda(
+        servers, prob.log_likelihood, prob.log_prior, GaussianRandomWalk(w.rw_step_km),
+        list(w.subchain_lengths), policy=w.balancer_policy,
+        batchable_levels=w.batchable_levels, ensemble_seed=w.ensemble_seed,
+        device_resident=True, device_densities=[lp_gp, lp_coarse],
+        device_chunk=ENSEMBLE_CHUNK, device="cuda", **w.balancer_kwargs(),
+    )
+    build.reset_counters()
+    try:
+        t0 = time.perf_counter()
+        result = runner.run(theta0, ENSEMBLE_FINE_SAMPLES)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        summary = lb.summary()
+    finally:
+        lb.shutdown()
+    fused = build.counter("swe_fused_step")
+    mean = build.counter("matern52_mean")
+    replays = {name[len("graph_replays "):]: c.value for name, c in build.COUNTERS.items()
+               if name.startswith("graph_replays ") and c.value}
+    busy = sum(summary["per_server_uptime"].values())
+    n_fine = ENSEMBLE_CHAINS * ENSEMBLE_FINE_SAMPLES
+    totals = result.level_totals()
+    print(f"[4c] (b) coupled, {ENSEMBLE_CHAINS} chains x {ENSEMBLE_FINE_SAMPLES} fine samples, "
+          f"subchains {list(w.subchain_lengths)}, {len(servers)} fine BatchServers ({smi}): "
+          f"wall {wall:.2f} s, fine samples/s {n_fine / wall:.2f}, device_seconds "
+          f"{runner.device_seconds:.2f} s ({runner.device_seconds / wall:.1%} of the wall), "
+          f"fine-pool utilization {busy / (wall * len(servers)):.1%}; balancer idle mean "
+          f"{summary['mean_idle_s'] * 1e3:.3f} ms, p99 {summary['p99_idle_s'] * 1e3:.3f} ms; "
+          f"batch histogram {summary['batch_histogram']}")
+    for row in totals:
+        print(f"[4c] (b) level {row['level']}: evals {row['n_evals']}, acceptance "
+              f"{row['acceptance_rate']:.3f}")
+    print(f"[4c] (b) launches: swe_fused_step {fused.value} ({fused.replayed} from graph "
+          f"replays), matern52_mean {mean.value} ({mean.replayed} from graph replays); "
+          f"graph replays {replays}")
+    rows.setdefault("swe_fused_step", {})["launches_phase_4c"] = {
+        "coupled": fused.value, "from_replays": fused.replayed}
+    rows.setdefault("matern52", {})["launches_phase_4c"] = {
+        "coupled": mean.value, "from_replays": mean.replayed}
+    for name, c in (("swe_fused_step", fused), ("matern52_mean", mean)):
+        if not c.value or not c.replayed > c.value / 2:
+            fail(f"(b) {name}: {c.value} launches, {c.replayed} from replays: not mostly "
+                 "from graph replays")
+    chains = result.chains
+    if chains.shape != (ENSEMBLE_CHAINS, ENSEMBLE_FINE_SAMPLES, 2) or not np.isfinite(
+            chains).all():
+        fail(f"(b) chains {chains.shape} not finite")
+    for s in result.samplers:
+        for r in s.levels:
+            if not 0 <= r.n_accepted <= r.n_proposed:
+                fail(f"(b) counts inconsistent: accepted {r.n_accepted}, proposed {r.n_proposed}")
+    # One proposal's graph alone, by the host's clock ended by a sync.
+    ens, state = runner.ensemble, runner.state
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ens.propose(state)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    keys = sorted(ens.executables)
+    print(f"[4c] (b) propose graph wall (5 replays, host clock, {smi}): "
+          f"{', '.join(f'{x:.2f}' for x in walls)} ms; graphs {keys}")
+    rows["swe_fused_step"]["propose_graph_wall_ms"] = float(np.median(walls))
+
+    # (c) chain scaling: a GP-only fused ensemble against C step machines.
+    def lp_host(t):
+        return float(lp_gp(torch.as_tensor(np.asarray(t, np.float32), device="cuda")[None])[0])
+
+    for n_chains in SCALING_CHAINS:
+        th0 = (prob.sample_prior(rng, n_chains) * 0.5).astype(np.float32)
+        ens = make_device_ensemble([lp_gp], [], w.rw_step_km, cache_key=("scaling",),
+                                   device="cuda")
+        state = ens.init(th0, seed=w.ensemble_seed)
+        state, thetas, _ = ens.advance(state, SCALING_DEVICE_STEPS)  # capture + warm
+        thetas.cpu()
+        t0 = time.perf_counter()
+        state, thetas, _ = ens.advance(state, SCALING_DEVICE_STEPS)
+        thetas = thetas.cpu().numpy()
+        dev_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for c in range(n_chains):
+            machine = MLDASampler([lp_host], GaussianRandomWalk(w.rw_step_km), [])
+            machine.sample(th0[c], SCALING_MACHINE_STEPS, np.random.default_rng(c))
+        mach_s = time.perf_counter() - t0
+        dev_rate = n_chains * SCALING_DEVICE_STEPS / dev_s
+        mach_rate = n_chains * SCALING_MACHINE_STEPS / mach_s
+        print(f"[4c] (c) C = {n_chains}: fused {dev_rate:.0f} chain-steps/s "
+              f"({SCALING_DEVICE_STEPS} steps, {dev_s:.3f} s), step machines "
+              f"{mach_rate:.0f} chain-steps/s ({SCALING_MACHINE_STEPS} steps, {mach_s:.3f} s), "
+              f"ratio {dev_rate / mach_rate:.2f} ({smi})")
+        if not np.isfinite(thetas).all():
+            fail(f"(c) C = {n_chains}: fused chains not finite")
+
+    # (d) the model protocol: the quickstart's two halves, then MALA through
+    # separate value and gradient pools of TorchModels on the card.
+    out = quickstart.main(["--device", "cuda"])
+    chain, vec = out["mlda_chain"], out["vectorised"].chain.cpu().numpy()
+    vec_mean = vec[:, 50:, :].reshape(-1, 2).mean(0)
+    if chain.shape != (100, 2) or not np.isfinite(chain).all() or not np.isfinite(vec).all():
+        fail(f"(d) quickstart chains {chain.shape}, {vec.shape} not finite")
+    if not np.all(np.abs(vec_mean - quickstart.Y_OBS) < 0.2):
+        fail(f"(d) vectorised quickstart mean {vec_mean} is off the posterior mean (1, -1)")
+    post = TorchModel(lambda t: -0.5 * torch.sum(t * t), name="post", input_dim=2,
+                      output_dim=1, device="cuda")
+    lb = LoadBalancer([Server(post, name="val-0", capacity_tags=("post:value",)),
+                       Server(post.gradient, name="grad-0", capacity_tags=("post:grad",))])
+    try:
+        dens = BalancedGradDensity(lb, "post", post, post.gradient)
+        mchain, mstats = mala(dens.value, dens.grad, np.zeros(2), 200,
+                              np.random.default_rng(2), eps=0.8)
+        tags = {row["tag"]: row["n_done"] for row in lb.stats_table()}
+        ups = lb.summary()["per_server_uptime"]
+    finally:
+        lb.shutdown()
+    walls = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        post.gradient(np.zeros(2))
+        walls.append((time.perf_counter() - t0) * 1e3)
+    print(f"[4c] (d) MALA through the balancer: acceptance {mstats.acceptance_rate:.3f}, "
+          f"requests by tag {tags}, busy seconds {ups}; after it, one TorchModel.gradient "
+          f"on the card (host clock, ended by its sync) median {np.median(walls):.3f} ms "
+          f"over 20 calls ({smi})")
+    if not np.isfinite(mchain).all() or not (tags.get("post:value") and tags.get("post:grad")):
+        fail("(d) MALA chain not finite, or the balancer did not see both request tags")
+
+    def f(t):
+        return torch.stack([torch.sin(t[0]) * torch.exp(t[1]), t[0] * t[1],
+                            torch.exp(-t[0]) + t[1] * t[1]])
+
+    model = TorchModel(f, name="nonlinear", input_dim=2, output_dim=3, device="cuda")
+    theta = torch.tensor([0.3, -0.7])
+    want_g = torch.func.grad(lambda t: torch.sum(f(t)))(theta)
+    want_j = torch.func.jacrev(f)(theta)
+    err_g = float((model.gradient(theta).cpu() - want_g).abs().max())
+    err_j = float((model.jacobian(theta).cpu() - want_j).abs().max())
+    print(f"[4c] (d) TorchModel on the card vs autograd on the CPU: gradient max abs err "
+          f"{err_g:.2e}, Jacobian {err_j:.2e} (limit {GRAD_ATOL})")
+    if not (err_g <= GRAD_ATOL and err_j <= GRAD_ATOL):
+        fail("(d) TorchModel derivatives on the card differ from autograd on the CPU")
+    through = TorchModel(lambda t: gp.predict(t[None])[0], name="gp", input_dim=2,
+                         output_dim=4, device="cuda")
+    try:
+        through.gradient(theta)
+    except RuntimeError as e:
+        print(f"[4c] (d) a gradient through the Matérn kernel is refused: {e}")
+    else:
+        fail("(d) a gradient through the Matérn mean kernel did not raise")
+    print(f"[4c] phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 # phases 5 and 6: the LM slice at full width
 # ---------------------------------------------------------------------------
 def _lm_config():
@@ -1686,6 +1984,8 @@ def main() -> None:
     ended("4 main path")
     phase_remote(torch, PAPER, res)
     ended("4b remote leg")
+    phase_device_ensemble(torch, PAPER, rows, res, smi)
+    ended("4c device ensemble")
     del res
     phase_lm(torch, rows)
     ended("5-6 LM")

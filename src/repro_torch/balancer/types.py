@@ -53,7 +53,7 @@ class ServerStats:
 class Server:
     """A persistent model server.
 
-    ``fn`` is the request handler (e.g. a :class:`repro_torch.core.model.JaxModel`
+    ``fn`` is the request handler (e.g. a :class:`repro_torch.core.model.TorchModel`
     or any callable).  ``capacity_tags`` restricts which request tags this
     server accepts (mirrors heterogeneous pools: fine-PDE servers vs GP
     servers).  Empty means 'accepts everything' — the paper's single-pool

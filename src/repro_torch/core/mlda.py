@@ -23,8 +23,9 @@ thread.  With ``speculative=True`` the machine additionally prefetches the
 next coarse subchain while a fine solve is still on a server, rewinding
 RNG/bookkeeping on a wrong guess so chains stay bit-identical.
 
-The fully vectorised lockstep (device-resident) variant is not ported yet:
-``balanced_mlda(device_resident=True)`` raises ``NotImplementedError``.
+The fully vectorised lockstep variant, and the device-resident ensemble
+behind ``balanced_mlda(device_resident=True)``, live in
+:mod:`repro_torch.core.mlda_device`.
 """
 from __future__ import annotations
 
@@ -36,6 +37,7 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tupl
 import numpy as np
 
 from repro_torch.balancer import LoadBalancer, Server  # Server: quoted annotations
+from repro_torch.device import DeviceLike
 from .mh import Proposal, mh_step_steps
 
 
@@ -155,6 +157,21 @@ class BalancedDensity:
         if not np.isfinite(lp):
             return float("-inf"), None
         return lp, self._submit(theta)
+
+    def begin_many(self, thetas) -> List[Tuple[float, Optional[Any]]]:
+        """:meth:`begin` for several thetas at once: those inside the prior's
+        support reach the balancer in one ``submit_many``, so same-level
+        solves are queued together and coalesce into stacked batches."""
+        lps = [float(self.log_prior(np.asarray(t))) for t in thetas]
+        live = [i for i, lp in enumerate(lps) if np.isfinite(lp)]
+        out: List[Tuple[float, Optional[Any]]] = [(float("-inf"), None)] * len(lps)
+        if live:
+            reqs = self.balancer.submit_many(
+                [thetas[i] for i in live], tag=self.tag, batchable=self.batchable
+            )
+            for i, req in zip(live, reqs):
+                out[i] = (lps[i], req)
+        return out
 
     def finish(self, lp: float, request) -> float:
         """Complete an evaluation started by :meth:`begin`."""
@@ -624,6 +641,7 @@ def balanced_mlda(
     device_resident: bool = False,
     device_densities: Optional[Sequence[Callable]] = None,
     device_chunk: int = 16,
+    device: DeviceLike = "cuda",
     **balancer_kwargs,
 ) -> Tuple[Any, LoadBalancer]:
     """Wire an MLDA hierarchy through the load balancer in one call.
@@ -653,21 +671,36 @@ def balanced_mlda(
     A level listed in both ``batchable_levels`` and ``hedged_levels`` is
     hedged, not batched (duplicated submissions are never coalesced).
 
-    Device-resident mode (``device_resident=True``, the fused on-device
-    chain ensemble) waits for its own slice of the port and raises
-    :class:`NotImplementedError`; ``device_densities`` and ``device_chunk``
-    are accepted only so that call sites keep the reference's signature.
+    Device-resident mode: with ``device_resident=True`` the levels below
+    the top run as one fused lockstep ensemble on ``device`` (the card
+    unless the caller asks for the CPU;
+    :class:`repro_torch.core.mlda_device.DeviceEnsemble`) and only the
+    finest level's solves go through the balancer.  ``device_densities``
+    must then supply the batched log-posteriors of levels ``0 .. L-1``
+    (coarse -> fine, ``(B, d)`` -> ``(B,)`` tensors on ``device``; e.g.
+    :func:`repro_torch.swe.device_densities`: the GP surrogate and the
+    coarse PDE); the return value is ``(DeviceEnsembleRunner, balancer)``
+    and ``proposal`` only contributes its ``scale`` (the ensemble
+    implements the random walk itself, float32).  ``speculative`` /
+    ``hedged_levels`` are step-machine features and must be off.
 
     Returns ``(sampler_or_runner, balancer)``; call ``balancer.shutdown()``
     when done.
     """
     n_levels = len(subchain_lengths) + 1
     if device_resident:
-        # Checked before the balancer exists: no dispatcher threads leak.
-        raise NotImplementedError(
-            "device_resident=True needs the fused device ensemble "
-            "(core/mlda_jax in the reference), a later slice of the port"
-        )
+        # Validate before the balancer exists: a bad call must not leave
+        # dispatcher threads running.
+        if device_densities is None or len(device_densities) != n_levels - 1:
+            raise ValueError(
+                "device_resident needs device_densities for levels "
+                f"0..{n_levels - 2} ({n_levels - 1} densities, coarse->fine)"
+            )
+        if speculative or hedged_levels:
+            raise ValueError(
+                "speculative prefetch and hedging are step-machine features; "
+                "the fused ensemble has neither"
+            )
     if isinstance(servers_or_balancer, LoadBalancer):
         balancer = servers_or_balancer
         if policy is not None and policy != balancer.policy.name:
@@ -686,6 +719,36 @@ def balanced_mlda(
         balancer = LoadBalancer(
             servers_or_balancer, policy=policy or "fifo", **balancer_kwargs
         )
+
+    if device_resident:
+        from repro_torch.core.mlda_device import make_device_ensemble  # cycle-free
+        from repro_torch.ensemble import DeviceEnsembleRunner
+
+        top = n_levels - 1
+        fine = BalancedDensity(
+            balancer,
+            level_tag(top),
+            log_likelihood,
+            log_prior,
+            batchable=top in batchable_levels,
+        )
+        ensemble = make_device_ensemble(
+            device_densities,
+            subchain_lengths,
+            getattr(proposal, "scale", 1.0),
+            remote_top=True,
+            randomize=randomize,
+            cache_key=("balanced_mlda",),
+            device=device,
+        )
+        runner = DeviceEnsembleRunner(
+            ensemble,
+            fine_density=fine,
+            seed=ensemble_seed,
+            chunk=device_chunk,
+            balancer=balancer,
+        )
+        return runner, balancer
 
     def make_sampler(prop: Proposal) -> MLDASampler:
         densities = [

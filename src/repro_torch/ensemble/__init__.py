@@ -9,9 +9,24 @@ busy.
 * :class:`EnsembleRunner` — drive N per-chain samplers (own proposal, RNG
   stream, LevelRecords) to completion; returns an :class:`EnsembleResult`
   with pooled cross-chain diagnostics;
-* :class:`DeviceEnsembleRunner` — the device-resident mode, not ported yet
-  (raises :class:`NotImplementedError`).
+* :class:`DeviceEnsembleRunner` — the ``device_resident=True`` mode: all
+  chains advance in lockstep inside captured device programs
+  (:class:`repro_torch.core.mlda_device.DeviceEnsemble`), surfacing to the
+  balancer only for fine-level solves (DESIGN.md §9);
+* :func:`repro_torch.core.mlda.balanced_mlda` with ``n_chains > 1`` or
+  ``device_resident=True`` — builds the runner and the shared balancer in
+  one call.
 """
-from .runner import DeviceEnsembleRunner, EnsembleResult, EnsembleRunner
+from .runner import (
+    DeviceChainStats,
+    DeviceEnsembleRunner,
+    EnsembleResult,
+    EnsembleRunner,
+)
 
-__all__ = ["DeviceEnsembleRunner", "EnsembleResult", "EnsembleRunner"]
+__all__ = [
+    "DeviceChainStats",
+    "DeviceEnsembleRunner",
+    "EnsembleResult",
+    "EnsembleRunner",
+]

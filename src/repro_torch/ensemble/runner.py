@@ -20,7 +20,7 @@ import numpy as np
 
 from repro_torch.balancer import LoadBalancer
 from repro_torch.core.diagnostics import effective_sample_size, gelman_rubin
-from repro_torch.core.mlda import ChainState, MLDASampler, PendingEval
+from repro_torch.core.mlda import ChainState, LevelRecord, MLDASampler, PendingEval
 
 
 Theta0 = Union[np.ndarray, Sequence[float], Callable[[int, np.random.Generator], np.ndarray]]
@@ -427,15 +427,198 @@ class EnsembleRunner:
         pe.resolve(v, seconds=req.service_time)
 
 
-class DeviceEnsembleRunner:
-    """The ``device_resident=True`` ensemble mode: not ported yet.
+class DeviceChainStats:
+    """Per-chain stats facade shaped like :class:`MLDASampler`.
 
-    The reference drives a fused on-device chain ensemble here; that
-    needs the device-resident MLDA kernel, a later slice of the port.
+    Device-resident chains have no step machine, but
+    :class:`EnsembleResult` reports through the sampler interface
+    (``levels`` / ``n_levels`` / ``speculation_summary``); this adapter
+    carries the :class:`~repro_torch.core.mlda.LevelRecord` totals decoded
+    from the ensemble's on-device counters.  Speculation does not exist on
+    the device path (the ensemble runs the true branch, never a guess), so
+    its telemetry is identically zero.
     """
 
-    def __init__(self, *args, **kwargs) -> None:
-        raise NotImplementedError(
-            "DeviceEnsembleRunner needs the fused device ensemble "
-            "(core/mlda_jax in the reference), a later slice of the port"
-        )
+    def __init__(self, levels: List[LevelRecord]) -> None:
+        self.levels = levels
+        self.balancer: Optional[LoadBalancer] = None
+
+    @property
+    def n_levels(self) -> int:
+        return len(self.levels)
+
+    def speculation_summary(self) -> Dict[str, Any]:
+        return {
+            "n_speculated": 0,
+            "n_spec_hits": 0,
+            "hit_rate": 0.0,
+            "discarded_evals_per_level": [0] * len(self.levels),
+        }
+
+
+class DeviceEnsembleRunner:
+    """Drive a :class:`repro_torch.core.mlda_device.DeviceEnsemble` to an
+    :class:`EnsembleResult` (the ``device_resident=True`` ensemble mode).
+
+    Two shapes, matching the ensemble's own modes:
+
+    * **fully fused**: every density is device-resident; the run is a
+      chunked loop of :meth:`~repro_torch.core.mlda_device.DeviceEnsemble.advance`
+      calls (``chunk`` top-level steps per host sync, all chains in one
+      graph replay a step).  The balancer is never consulted.
+    * **coupled**: the finest level lives behind the balancer
+      (``fine_density``: a :class:`~repro_torch.core.mlda.BalancedDensity`
+      or plain callable).  Each step runs every chain's whole coarse
+      subchain recursion in ONE graph replay (:meth:`propose`), surfaces
+      only the moved chains' fine proposals to the balancer (submitted
+      together, so same-level solves coalesce into stacked batches), and
+      folds the results back in on the device (:meth:`accept`).
+
+    Chains advance in lockstep, so failure semantics differ from
+    :class:`EnsembleRunner`'s per-chain isolation: a fine-solve error past
+    the balancer's retries aborts the whole run (the ensemble state is one
+    fused tensor; there is no per-chain machine to park).  RNG: chain keys
+    from :func:`repro_torch.core.counter_rng.chain_keys` ``(seed, C)``;
+    chains equal per-chain :class:`MLDASampler` machines driven by
+    :class:`~repro_torch.core.counter_rng.CounterStream` and
+    :class:`~repro_torch.core.mlda_device.DeviceMatchedRandomWalk` bit for
+    bit.  ``device_seconds`` is the wall time inside the device programs,
+    each ended by its host copy.
+    """
+
+    def __init__(
+        self,
+        ensemble,  # repro_torch.core.mlda_device.DeviceEnsemble
+        *,
+        fine_density: Optional[Callable] = None,
+        seed: int = 0,
+        chunk: int = 16,
+        balancer: Optional[LoadBalancer] = None,
+    ) -> None:
+        if ensemble.remote_top and fine_density is None:
+            raise ValueError("coupled (remote-top) ensembles need fine_density")
+        self.ensemble = ensemble
+        self.fine_density = fine_density
+        self.seed = int(seed)
+        self.chunk = max(int(chunk), 1)
+        self.balancer = balancer or getattr(fine_density, "balancer", None)
+        self.device_seconds = 0.0  # wall-clock inside the device programs
+        self.state = None  # EnsembleState after run()
+
+    # -- driver ---------------------------------------------------------------
+    def run(
+        self,
+        theta0: Theta0,
+        n_samples: int,
+        *,
+        progress_every: int = 0,
+    ) -> EnsembleResult:
+        """Advance every chain ``n_samples`` top-level steps.
+
+        ``theta0`` is ``(C, d)``: the chain count is its leading axis (the
+        fused state is one stacked tensor, so over-dispersed starts are
+        passed as rows, not as a per-chain callable).
+        """
+        if callable(theta0):
+            raise TypeError(
+                "device-resident ensembles take theta0 as a (C, d) array "
+                "(one row per chain), not a per-chain callable"
+            )
+        theta0 = np.atleast_2d(np.asarray(theta0, dtype=np.float32))
+        n_chains = theta0.shape[0]
+        n_samples = int(n_samples)
+        ens = self.ensemble
+        top_seconds = np.zeros(n_chains)
+        if ens.remote_top:
+            chains = self._run_coupled(theta0, n_samples, top_seconds, progress_every)
+        else:
+            chains = self._run_fused(theta0, n_samples, progress_every)
+        counts = self.state.counts.cpu().numpy()
+        samplers = []
+        for c in range(n_chains):
+            levels = []
+            for lvl in range(ens.n_levels):
+                rec = LevelRecord()
+                rec.n_accepted = int(counts[c, lvl, 0])
+                rec.n_proposed = int(counts[c, lvl, 1])
+                rec.n_evals = int(counts[c, lvl, 2])
+                levels.append(rec)
+            if ens.remote_top:
+                levels[-1].eval_seconds = float(top_seconds[c])
+            samplers.append(DeviceChainStats(levels))
+        return EnsembleResult(chains=chains, samplers=samplers, failures={})
+
+    def _progress(self, total: int, printed: int, every: int, of: int, what: str) -> int:
+        while every and total >= printed + every:
+            printed += every
+            print(f"[ensemble/device] {printed}/{of} {what}", flush=True)
+        return printed
+
+    def _run_fused(
+        self, theta0: np.ndarray, n_samples: int, progress_every: int
+    ) -> np.ndarray:
+        ens = self.ensemble
+        n_chains = theta0.shape[0]
+        state = ens.init(theta0, seed=self.seed)
+        out: List[np.ndarray] = []
+        drawn = printed = 0
+        while drawn < n_samples:
+            k = min(self.chunk, n_samples - drawn)
+            t0 = time.monotonic()
+            state, thetas, _logps = ens.advance(state, k)
+            out.append(thetas.cpu().numpy())  # host sync: the replays really finished
+            self.device_seconds += time.monotonic() - t0
+            drawn += k
+            printed = self._progress(drawn * n_chains, printed, progress_every,
+                                     n_samples * n_chains, "fused chain steps")
+        self.state = state
+        return np.concatenate(out, axis=1)  # (C, n_samples, d)
+
+    def _run_coupled(
+        self,
+        theta0: np.ndarray,
+        n_samples: int,
+        top_seconds: np.ndarray,
+        progress_every: int,
+    ) -> np.ndarray:
+        ens = self.ensemble
+        density = self.fine_density
+        n_chains, dim = theta0.shape
+        # Initial top density per chain: the one start-state evaluation the
+        # Python machine books per level (counts[..., 2] starts at 1).
+        logp0 = np.array([float(density(theta0[c])) for c in range(n_chains)])
+        state = ens.init(theta0, seed=self.seed, logp0=logp0)
+        samples = np.empty((n_chains, n_samples, dim), np.float32)
+        printed = 0
+        asynchronous = hasattr(density, "begin_many")
+        for i in range(n_samples):
+            t0 = time.monotonic()
+            state, pending = ens.propose(state)
+            moved = np.nonzero(pending.moved.cpu().numpy())[0]
+            psi = pending.psi.cpu().numpy()
+            self.device_seconds += time.monotonic() - t0
+            logp_psi = np.zeros(n_chains, np.float64)
+            if not asynchronous:
+                for c in moved:
+                    t1 = time.monotonic()
+                    logp_psi[c] = float(density(psi[c]))
+                    top_seconds[c] += time.monotonic() - t1
+            else:
+                # Submitted together: the balancer queues the moved chains'
+                # solves at once and coalesces them into stacked batches;
+                # finishing in order just collects the results.
+                for c, (lp, req) in zip(moved, density.begin_many(list(psi[moved]))):
+                    if req is None:  # prior rejected locally: no solve needed
+                        logp_psi[c] = lp
+                        continue
+                    logp_psi[c] = density.finish(lp, req)
+                    top_seconds[c] += req.service_time
+            t2 = time.monotonic()
+            state, _accepted = ens.accept(state, pending, logp_psi)
+            samples[:, i] = state.theta.cpu().numpy()
+            self.device_seconds += time.monotonic() - t2
+            printed = self._progress((i + 1) * n_chains, printed, progress_every,
+                                     n_samples * n_chains,
+                                     f"fine samples across {n_chains} chains")
+        self.state = state
+        return samples

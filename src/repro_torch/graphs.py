@@ -19,6 +19,7 @@ instead on the card.
 """
 from __future__ import annotations
 
+import gc
 import threading
 from typing import Callable, Dict, List, Optional, Sequence
 
@@ -40,6 +41,38 @@ def _side_stream(device: torch.device) -> torch.cuda.Stream:
     if stream is None:
         stream = streams[device.index] = torch.cuda.Stream(device, priority=-1)
     return stream
+
+
+class _CollectorPause:
+    """Python's cyclic garbage collector held off while any thread captures.
+
+    A collection may free an object that owns another CUDA graph (a graph
+    cache in a reference cycle); destroying a graph is an operation that
+    CUDA refuses on a capturing thread, and the refusal invalidates that
+    thread's capture.  The collector is one per process, so the pause is
+    counted across threads; garbage waits for the first moment no capture
+    runs."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._depth = 0
+        self._was_enabled = False
+
+    def __enter__(self) -> None:
+        with self._lock:
+            if self._depth == 0:
+                self._was_enabled = gc.isenabled()
+                gc.disable()
+            self._depth += 1
+
+    def __exit__(self, *exc) -> None:
+        with self._lock:
+            self._depth -= 1
+            if self._depth == 0 and self._was_enabled:
+                gc.enable()
+
+
+_COLLECTOR_PAUSE = _CollectorPause()
 
 
 class StaticGraph:
@@ -82,7 +115,7 @@ class StaticGraph:
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.stream(side):
             self.fn(*self.inputs)
-            with build.recording() as tally:
+            with build.recording() as tally, _COLLECTOR_PAUSE:
                 graph.capture_begin(capture_error_mode="thread_local")
                 try:
                     out = self.fn(*self.inputs)

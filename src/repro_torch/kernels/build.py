@@ -21,6 +21,8 @@ from contextlib import contextmanager
 from pathlib import Path
 from typing import Dict, Iterable, Iterator, List, Sequence, Tuple
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = (
@@ -192,6 +194,22 @@ def check_launch(err: int, kernel: str) -> None:
     """Raise if a kernel's C entry point reported a CUDA error."""
     if err != 0:
         raise RuntimeError(f"CUDA kernel '{kernel}' failed to launch (cudaError {err})")
+
+
+def require_plain(tensors, kernel: str) -> None:
+    """Raise unless every input of a kernel launch is a plain tensor.
+
+    The kernels have no backward and no batching rule (nor had the Pallas
+    kernels they replace a VJP), so a launch under autograd or a
+    ``torch.func`` transform (``grad``, ``jacfwd``, ``vmap``) is refused
+    here with the reason, never run through the plain version instead."""
+    for t in tensors:
+        if t.requires_grad or torch._C._functorch.is_functorch_wrapped_tensor(t):
+            raise RuntimeError(
+                f"{kernel}: the CUDA kernel has no backward and no batching rule; "
+                "call it on plain tensors, outside autograd and torch.func "
+                "transforms (grad, jacfwd, vmap)"
+            )
 
 
 def reset_counters() -> None:

@@ -68,6 +68,7 @@ def flash_attention(
         raise ValueError(f"flash_attention: q {tuple(q.shape)} and kv {tuple(k.shape)} "
                          "disagree (GQA needs H % Hkv == 0 and equal B, S, D)")
     which = route(q.dtype, d)
+    build.require_plain((q, k, v), "flash_attention")
     for t in (q, k, v):
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError("flash_attention: q, k and v must lie on the same card")

@@ -73,6 +73,7 @@ def mean_launches_by_p() -> Dict[int, int]:
 
 
 def _check_card(tensors, what: str) -> None:
+    build.require_plain(tensors, what)
     for t in tensors:
         if t.device.type != "cuda" or t.device != tensors[0].device:
             raise ValueError(f"{what}: all inputs must lie on the same card")

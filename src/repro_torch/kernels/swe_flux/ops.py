@@ -41,6 +41,7 @@ def _stream() -> int:
 
 
 def _check(tensors: Sequence[torch.Tensor], shape: Tuple[int, ...], what: str) -> None:
+    build.require_plain(tensors, what)
     for t in tensors:
         if t.device.type != "cuda":
             raise ValueError(f"{what}: all inputs must lie on the card, got {t.device}")

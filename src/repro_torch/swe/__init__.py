@@ -3,6 +3,7 @@ from .scenario import (
     TohokuInverseProblem,
     TohokuScenario,
     build_hierarchy,
+    device_densities,
     make_hierarchy,
     observe,
     train_level0_gp,
@@ -22,6 +23,7 @@ __all__ = [
     "TohokuScenario",
     "build_hierarchy",
     "close_transports",
+    "device_densities",
     "lake_at_rest_error",
     "local_level_servers",
     "make_hierarchy",

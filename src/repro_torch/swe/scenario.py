@@ -12,8 +12,9 @@ forwards take and return float32 tensors on that device.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -271,6 +272,19 @@ class TohokuInverseProblem:
             return float("-inf")
         return -float(np.sum(np.log(hi - lo)))
 
+    def log_prior_torch(self, theta: torch.Tensor) -> torch.Tensor:
+        """Batched log prior: ``(B, 2)`` float32 parameters -> ``(B,)``
+        float32, ``-inf`` outside the box.  The counterpart of the
+        reference's ``log_prior_jax``, a row per member; only scalar
+        constants, so it copies nothing to the device and never syncs
+        (it runs inside captured graphs)."""
+        lo, hi = self.prior_bounds()
+        inside = torch.ones_like(theta[:, 0], dtype=torch.bool)
+        for j in range(theta.shape[1]):
+            inside = inside & (theta[:, j] >= float(lo[j])) & (theta[:, j] <= float(hi[j]))
+        const = -float(np.sum(np.log((hi - lo).astype(np.float32))))
+        return torch.full_like(theta[:, 0], const).masked_fill(~inside, -math.inf)
+
     def sample_prior(self, rng: np.random.Generator, n: int = 1) -> np.ndarray:
         lo, hi = self.prior_bounds()
         return rng.uniform(lo, hi, size=(n, 2))
@@ -294,6 +308,20 @@ class TohokuInverseProblem:
             raise RuntimeError("call generate_observations first")
         r = (np.asarray(obs) - self.y_obs) / self.noise_sigma()
         return -0.5 * float(np.sum(r * r))
+
+    def log_likelihood_torch(self, obs: torch.Tensor) -> torch.Tensor:
+        """Batched Gaussian log likelihood: ``(B, 4)`` float32 observables
+        -> ``(B,)`` float32.  The counterpart of the reference's
+        ``log_likelihood_jax``; the four squared residuals are summed in a
+        fixed order, column by column, so a row never depends on B.  Scalar
+        constants only, as :meth:`log_prior_torch`."""
+        if self.y_obs is None:
+            raise RuntimeError("call generate_observations first")
+        total = None
+        for i, (y, sigma) in enumerate(zip(self.y_obs, self.noise_sigma())):
+            r = (obs[:, i] - float(y)) / float(sigma)
+            total = r * r if total is None else total + r * r
+        return -0.5 * total
 
 
 def make_hierarchy(
@@ -319,6 +347,35 @@ def make_hierarchy(
         "forward_fine_batch": fine.build_batch_forward(),
         "forward_coarse_batch": coarse.build_batch_forward(),
     }
+
+
+def device_densities(
+    problem: TohokuInverseProblem, gp, forward_coarse_batch: Callable
+) -> List[Callable]:
+    """The device-resident densities ``[lp_gp, lp_coarse]`` of levels 0 and
+    1 for :func:`repro_torch.core.balanced_mlda` ``(device_resident=True)``
+    and :class:`repro_torch.core.DeviceEnsemble`: batched ``(B, 2)`` ->
+    ``(B,)`` float32 on the GP's and forward's device (the counterpart of
+    the reference benchmark's ``_jax_densities``).
+
+    ``lp_gp`` is the prior plus the likelihood of ``gp.predict`` (one
+    posterior-mean launch for all rows); ``lp_coarse`` that of the batched
+    coarse forward's ``eager`` solve (one fused-step launch a time step for
+    all rows): not its cached graph, because a graph replay cannot run
+    inside the ensemble's own capture.  Neither syncs with the host, and a
+    row depends on its member alone.
+    """
+    coarse = forward_coarse_batch.eager
+
+    def lp_gp(thetas: torch.Tensor) -> torch.Tensor:
+        return problem.log_prior_torch(thetas) + problem.log_likelihood_torch(
+            gp.predict(thetas))
+
+    def lp_coarse(thetas: torch.Tensor) -> torch.Tensor:
+        return problem.log_prior_torch(thetas) + problem.log_likelihood_torch(
+            coarse(thetas))
+
+    return [lp_gp, lp_coarse]
 
 
 def build_hierarchy(w, device) -> Dict[str, object]:

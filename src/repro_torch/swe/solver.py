@@ -167,11 +167,11 @@ class GraphBatchCache:
     """Power-of-two padded, per-``(*key, B)`` CUDA-graph cache: the port's
     counterpart of the reference's ``AOTBatchCache``.
 
-    ``stacked_fn`` takes one ``(B, ...)`` tensor whose leading axis is the
-    batch and returns tensors (or tuples of them) with the same leading
-    axis.  A call pads its input to ``pow2_batch(B)`` rows, ``"zeros"``
-    filling the padding with zeros and ``"repeat"`` with copies of row 0
-    (for inputs where zeros are not valid), and runs the
+    ``stacked_fn`` takes one or more ``(B, ...)`` tensors whose leading axis
+    is the batch and returns tensors (or tuples of them) with the same
+    leading axis.  A call pads its inputs to ``pow2_batch(B)`` rows,
+    ``"zeros"`` filling the padding with zeros and ``"repeat"`` with copies
+    of row 0 (for inputs where zeros are not valid), and runs the
     :class:`~repro_torch.graphs.StaticGraph` of that size: captured at the
     first call of each size on the card, eager on the CPU.  It returns
     ``(outputs, n)`` with the *padded* leading axis; the caller slices back
@@ -195,22 +195,23 @@ class GraphBatchCache:
         self.executables: Dict[Tuple, Dict[int, StaticGraph]] = {}
         self._lock = threading.Lock()
 
-    def __call__(self, stacked: torch.Tensor):
-        n = stacked.shape[0]
+    def __call__(self, *stacked: torch.Tensor):
+        n = stacked[0].shape[0]
         n_pad = pow2_batch(n)
         if n_pad != n:
-            shape = (n_pad - n, *stacked.shape[1:])
-            fill = (stacked.new_zeros(shape) if self.pad == "zeros"
-                    else stacked[:1].expand(shape))
-            stacked = torch.cat([stacked, fill])
+            stacked = tuple(torch.cat([x, self._fill(x, n_pad - n)]) for x in stacked)
         key, thread = (*self.key, n_pad), threading.get_ident()
         with self._lock:
             graph = self.executables.setdefault(key, {}).get(thread)
         if graph is None:
-            graph = StaticGraph(self.stacked_fn, [stacked], name=self.name)
+            graph = StaticGraph(self.stacked_fn, stacked, name=self.name)
             with self._lock:
                 self.executables[key][thread] = graph
-        return graph(stacked), n
+        return graph(*stacked), n
+
+    def _fill(self, x: torch.Tensor, rows: int) -> torch.Tensor:
+        shape = (rows, *x.shape[1:])
+        return x.new_zeros(shape) if self.pad == "zeros" else x[:1].expand(shape)
 
 
 def _rest_depth(b: torch.Tensor) -> torch.Tensor:

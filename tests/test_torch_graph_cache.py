@@ -11,6 +11,7 @@ planted faults of ``graphs.py`` against the checks of ``chip_smoke.py``,
 and the graph-backed decode against the eager decode step.  The tests of
 the replays themselves need the card and carry the ``gpu`` marker.
 """
+import gc
 import importlib.util
 import threading
 import types
@@ -207,6 +208,41 @@ def test_graph_checks_reject_the_planted_faults(name, monkeypatch):
     sc = TohokuScenario(nx=24, ny=24, t_end=300.0, device="cpu")
     checks = chip_smoke.graph_checks(torch, sc)
     assert [c for c in checks if not c[2] < c[3]]
+
+
+def test_collector_stays_paused_while_any_capture_runs():
+    """Captures hold Python's cyclic collector off (a collection could
+    destroy another graph, which invalidates a capture): overlapping
+    captures of two threads keep it off until the last ends, and a
+    collector the program had turned off stays off."""
+    from repro_torch.graphs import _CollectorPause
+
+    was = gc.isenabled()
+    pause = _CollectorPause()
+    started, release = threading.Barrier(2), threading.Event()
+
+    def capture():
+        with pause:
+            started.wait(timeout=10)
+            release.wait(timeout=10)
+
+    try:
+        gc.enable()
+        other = threading.Thread(target=capture)
+        other.start()
+        with pause:
+            started.wait(timeout=10)
+            release.set()
+            other.join(timeout=10)
+            assert not other.is_alive()
+            assert not gc.isenabled()  # the other capture ended, this one runs
+        assert gc.isenabled()
+        gc.disable()
+        with pause:
+            pass
+        assert not gc.isenabled()
+    finally:
+        (gc.enable if was else gc.disable)()
 
 
 def test_counters_tally_captured_launches_and_count_replays():

@@ -11,6 +11,7 @@ import dataclasses
 import re
 import subprocess
 import sys
+import threading
 from pathlib import Path
 
 import jax  # noqa: F401  (both frameworks in one process, JAX on the CPU)
@@ -21,13 +22,15 @@ import torch
 
 from repro.core.gp import fit_gp as jax_fit_gp
 from repro_torch.configs.tohoku_mlda import CPU
-from repro_torch.core import GaussianRandomWalk, balanced_mlda
+from repro_torch.core import GaussianRandomWalk, balanced_mlda, make_device_ensemble
 from repro_torch.device import resolve_device
 from repro_torch.ensemble import DeviceEnsembleRunner, EnsembleRunner
 from repro_torch.launch.tsunami import main as tsunami_main
 from repro_torch.launch.tsunami import run
 from repro_torch.swe import (
     TohokuScenario,
+    device_densities,
+    local_level_servers,
     make_hierarchy,
     make_level_servers,
     train_level0_gp,
@@ -146,17 +149,57 @@ def test_device_defaults_to_card_and_never_falls_back():
         resolve_device("meta")
 
 
-def test_later_slices_raise_not_implemented(tiny_hierarchy):
-    prob = tiny_hierarchy["problem"]
-    with pytest.raises(NotImplementedError, match="later slice"):
-        balanced_mlda(
-            [], prob.log_likelihood, prob.log_prior, GaussianRandomWalk(1.0), [2, 2],
-            device_resident=True,
-        )
-    with pytest.raises(NotImplementedError, match="later slice"):
-        DeviceEnsembleRunner()
+def test_later_slices_raise_not_implemented():
+    """The on-disk checkpoints of the ensemble driver wait for the port of
+    the checkpoint module (ROADMAP Queue 1 item 9)."""
     with pytest.raises(NotImplementedError, match="checkpoint"):
         EnsembleRunner(lambda c: None, 1, checkpoint_dir="anywhere")
+
+
+def test_device_resident_validates_before_building_a_balancer(tiny_hierarchy):
+    """A bad device-resident call raises ValueError before any dispatcher
+    thread exists; a coupled ensemble without its fine density is refused."""
+    prob = tiny_hierarchy["problem"]
+    threads = threading.active_count()
+    for kwargs in ({}, {"device_densities": [lambda t: t[:, 0]]}):
+        with pytest.raises(ValueError, match="device_densities"):
+            balanced_mlda(
+                [], prob.log_likelihood, prob.log_prior, GaussianRandomWalk(1.0), [2, 2],
+                device_resident=True, device="cpu", **kwargs,
+            )
+    assert threading.active_count() == threads
+    coupled = make_device_ensemble([lambda t: t[:, 0]], [2], 1.0, remote_top=True,
+                                   device="cpu")
+    with pytest.raises(ValueError, match="fine_density"):
+        DeviceEnsembleRunner(coupled)
+
+
+def test_device_resident_main_path_on_cpu(tiny_hierarchy):
+    """The coupled ensemble as chip_smoke's phase 4c drives it, at TINY
+    size: GP and coarse densities on the device, the fine BatchServers
+    behind the balancer."""
+    h = tiny_hierarchy
+    prob = h["problem"]
+    servers = [s for s in local_level_servers(TINY, h["gp"], h) if "level2" in s.capacity_tags]
+    runner, lb = balanced_mlda(
+        servers, prob.log_likelihood, prob.log_prior, GaussianRandomWalk(TINY.rw_step_km),
+        list(TINY.subchain_lengths), batchable_levels=TINY.batchable_levels,
+        device_resident=True, device_densities=device_densities(
+            prob, h["gp"], h["forward_coarse_batch"]),
+        device="cpu", **TINY.batch_kwargs(),
+    )
+    theta0 = (prob.sample_prior(np.random.default_rng(0), 3) * 0.5).astype(np.float32)
+    try:
+        res = runner.run(theta0, 4)
+        hist = lb.telemetry.batch_histogram()
+    finally:
+        lb.shutdown()
+    assert res.chains.shape == (3, 4, 2) and np.isfinite(res.chains).all()
+    assert set(hist) == {"level2"}  # only fine solves reach the balancer
+    for row in res.level_totals():
+        assert row["n_evals"] >= 1
+    for stats in res.samplers:
+        assert all(0 <= r.n_accepted <= r.n_proposed for r in stats.levels)
 
 
 def _port_modules():
