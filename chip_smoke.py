@@ -75,7 +75,8 @@ Phases (any failure exits non-zero; there is no CPU path):
    gradient and Jacobian against autograd on the CPU, and a gradient
    through the Matérn kernel refused;
 5. the LM slice's prefill: qwen2-0.5b at full width in bf16 (seeded random
-   weights) on one 32768-token prompt, counters at 0 just before; the
+   weights) on one 32768-token prompt, the head on the last position only,
+   counters at 0 just before; the
    tensor-core flash kernel must launch once per layer, the fp32 one never; the last position's logits must be
    finite, and may differ from the same prefill through the plain blocked
    attention by at most twice the difference between two sound plain
@@ -94,6 +95,22 @@ Phases (any failure exits non-zero; there is no CPU path):
    top-2 rule instead); a decode step at B = 1 and B = 8 is timed eager
    against replay, and the profiler reads the device's busy share and the
    largest device operations of a B = 1 step, eager and replayed;
+6b. the paged and speculative modes on phase 6's work and weights (8
+   slots, 16-position blocks, 64 blocks, 16-position prefill chunks;
+   ``spec_k`` 4 with a 12-layer draft): (a) speculative tokens must equal
+   generation's exactly, and paged tokens may differ from them only where
+   the eager B = 1 top-2 gap is below twice phase 6's larger control
+   difference; (b) a ``PagedGraphs`` of the pool's shapes must equal the
+   eager ``paged_prefill_chunk`` and ``paged_decode_step`` on a copy of
+   its state bit for bit (ids, logits, positions, block pool), also after
+   a slot moved onto other block rows after the captures, and the eager
+   chunked prefill's first-token logits must lie within twice delta_first
+   of the serving prefill's; (c) block occupancy must lie in (0, 1] and
+   the speculative server must report rounds and drafts; (d) the four
+   modes' tokens/s, TTFT and per-token latency, the ratios beside the
+   reference's gates, the chunk graphs' captures and graph memory, and a
+   paged step eager against replay and under the profiler, printed and not
+   gated;
 7. print the ``kernels`` JSON line, then the result line.
 """
 from __future__ import annotations
@@ -250,14 +267,20 @@ FLASH_CASES = [
     (1, 2, 2, 512, 128, True, 256),
 ]
 # The LM slice: qwen2-0.5b at full width; the prefill_32k shape with its
-# global batch cut from 32 to 1 (the fp32 logits of every position take
-# 19.9 GB per sequence); serving as launch/serve.py draws its requests.
+# global batch cut from 32 to 1 (the two plain blocked prefills that phase 5
+# holds the kernel path against take 10-16 s each at batch 1 on an H100);
+# serving as launch/serve.py draws its requests.
 LM_ARCH = "qwen2-0.5b"
 FLASH_PLAIN_LEN = 4096  # the longest prompt the materialising plain version fits
 SERVE_REQUESTS = 16
 SERVE_PROMPT_LEN = 32
 SERVE_CACHE_LEN = 128
 SERVE_SLOTS = 8
+# 6b: the paged pool (n_blocks at its default, SERVE_SLOTS x 8) and the
+# speculative mode (its draft is the bottom half of the layers).
+PAGED_BLOCK_SIZE = 16
+PAGED_CHUNK = 16
+SPEC_K = 4
 # A kernel-path logit difference may be at most this many times the
 # control's: the difference between two sound plain computations of the same
 # logits (prefill: 64- vs 512-key blocks; first tokens: the chunked prefill
@@ -1707,42 +1730,93 @@ def phase_lm_prefill(torch, cfg, params, rows):
              f"{PREFILL_DIFF_FACTOR}x the control's {d_ctrl}")
 
 
+def serve_work(torch, cfg, params, mode, work, phase, **engine_kw):
+    """``work`` through a ``ServingEngine`` in ``mode`` on the card, after one
+    warm-up request -> (tokens of each request, ``serving_metrics`` with the
+    engine's summary under ``"summary"``)."""
+    import numpy as np
+
+    from repro_torch.runtime.serve_loop import ServingEngine, serving_metrics
+
+    name = cfg.arch_id
+    warm = np.random.default_rng(1).integers(0, cfg.vocab, size=(1, SERVE_PROMPT_LEN))
+    with ServingEngine({name: cfg}, mode=mode, n_slots=SERVE_SLOTS, cache_len=SERVE_CACHE_LEN,
+                       device="cuda", params={name: params}, **engine_kw) as eng:
+        eng.submit(name, warm, 2).result(timeout=600)
+        t0 = time.monotonic()
+        gens = [eng.submit(name, p, n) for p, n in work]
+        for g in gens:
+            g.result(timeout=600)
+        wall = time.monotonic() - t0
+        m = serving_metrics(gens, wall, eng.summary())
+        m["summary"] = eng.summary()
+    tokens = [g.result().tokens for g in gens]
+    print(f"[{phase}] serving {mode}: {m['n_requests']} requests, {m['n_tokens']} tokens in "
+          f"{wall:.3f} s -> {m['tokens_per_s']:.1f} tok/s; ttft mean "
+          f"{m['ttft_mean_s'] * 1e3:.2f} ms p99 {m['ttft_p99_s'] * 1e3:.2f} ms; per-token "
+          f"p50 {m['per_token_p50_s'] * 1e3:.2f} ms p99 {m['per_token_p99_s'] * 1e3:.2f} ms; "
+          f"slot occupancy {m.get('slot_occupancy', {})}")
+    for toks, (_, n_new) in zip(tokens, work):
+        if len(toks) != n_new:
+            fail(f"{mode}: a request asked for {n_new} tokens and got {len(toks)}")
+    return tokens, m
+
+
+def profile_steps(torch, label: str, fn, n_steps: int = 5) -> None:
+    """Where one step's time goes: ``n_steps`` calls of ``fn`` under the
+    profiler, host ops issued against device time, the device's busy share
+    and its largest operations."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    ops = [e for e in events if e.name.startswith("aten::")
+           and e.device_type != torch.autograd.DeviceType.CUDA
+           and (e.cpu_parent is None or not e.cpu_parent.name.startswith("aten::"))]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / n_steps
+    wall_ms = wall * 1e3 / n_steps
+    if not kernels:
+        print(f"{label}: {wall_ms:.3f} ms wall under the profiler, {len(ops) / n_steps:.0f} "
+              "host ops per step; device time not measured (the profiler saw no kernels)")
+        return
+    print(f"{label} (profiler, {n_steps} steps): {wall_ms:.3f} ms wall, "
+          f"{len(ops) / n_steps:.0f} top-level host ops and {len(kernels) / n_steps:.0f} device "
+          f"operations per step, device time {busy_ms:.3f} ms: device busy "
+          f"{busy_ms / wall_ms:.1%}, idle {1 - busy_ms / wall_ms:.1%}")
+    by_name = Counter()
+    for e in kernels:
+        by_name[e.name] += e.time_range.elapsed_us() / 1e3 / n_steps
+    print(f"{label}, device time by operation (ms a step, share): "
+          + "; ".join(f"{name[:90]} {t:.3f} ({t / busy_ms:.1%})"
+                      for name, t in by_name.most_common(5)))
+
+
 def phase_lm_serving(torch, cfg, params):
+    """Phase 6; returns what phase 6b holds its modes to: the work, each
+    mode's tokens and metrics, the control differences and the eager B = 1
+    logits of the generation tokens."""
     import numpy as np
 
     from repro_torch.models import build_model
     from repro_torch.models.lm import decode_step, pool_decode_state, slot_insert
-    from repro_torch.runtime.serve_loop import DecodeGraph, ServingEngine, serving_metrics
+    from repro_torch.runtime.serve_loop import DecodeGraph
 
-    name = cfg.arch_id
     rng = np.random.default_rng(0)
     work = []
     for _ in range(SERVE_REQUESTS):  # as launch/serve.py draws them (one variant)
         rng.integers(1)
         n_new = int(rng.choice([1, 4, 16, 64], p=[0.4, 0.3, 0.2, 0.1]))
         work.append((rng.integers(0, cfg.vocab, size=(1, SERVE_PROMPT_LEN)), n_new))
-    warm = np.random.default_rng(1).integers(0, cfg.vocab, size=(1, SERVE_PROMPT_LEN))
-    tokens = {}
+    tokens, metrics = {}, {}
     for mode in ("continuous", "generation"):
-        with ServingEngine({name: cfg}, mode=mode, n_slots=SERVE_SLOTS,
-                           cache_len=SERVE_CACHE_LEN, device="cuda",
-                           params={name: params}) as eng:
-            eng.submit(name, warm, 2).result(timeout=600)
-            t0 = time.monotonic()
-            gens = [eng.submit(name, p, n) for p, n in work]
-            for g in gens:
-                g.result(timeout=600)
-            wall = time.monotonic() - t0
-            m = serving_metrics(gens, wall, eng.summary())
-        tokens[mode] = [g.result().tokens for g in gens]
-        print(f"[6] serving {mode}: {m['n_requests']} requests, {m['n_tokens']} tokens in "
-              f"{wall:.3f} s -> {m['tokens_per_s']:.1f} tok/s; ttft mean "
-              f"{m['ttft_mean_s'] * 1e3:.2f} ms p99 {m['ttft_p99_s'] * 1e3:.2f} ms; per-token "
-              f"p50 {m['per_token_p50_s'] * 1e3:.2f} ms p99 {m['per_token_p99_s'] * 1e3:.2f} ms; "
-              f"slot occupancy {m.get('slot_occupancy', {})}")
-        for toks, (_, n_new) in zip(tokens[mode], work):
-            if len(toks) != n_new:
-                fail(f"{mode}: a request asked for {n_new} tokens and got {len(toks)}")
+        tokens[mode], metrics[mode] = serve_work(torch, cfg, params, mode, work, "6")
 
     # First tokens against the kernel path's prefill.  delta_first, the
     # control, is the largest logit difference between two computations that
@@ -1892,52 +1966,218 @@ def phase_lm_serving(torch, cfg, params):
               f"turns): eager {step_ms['eager']:.3f} ms, replay {step_ms['replay']:.3f} ms; "
               "runs " + ", ".join(f"{k} " + "/".join(f"{x:.3f}" for x in v)
                                    for k, v in runs.items()))
-    from torch.profiler import ProfilerActivity, profile
-
     feed = torch.zeros((1, 1), dtype=torch.int64, device="cuda")
-    for label, fn in (("eager", lambda: decode_step(params, cfg, states[1], feed)),
-                      ("replay", lambda: g1(feed))):
-        n_steps = 5
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(n_steps):
-                fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        events = prof.events()
-        kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-        ops = [e for e in events if e.name.startswith("aten::")
-               and e.device_type != torch.autograd.DeviceType.CUDA
-               and (e.cpu_parent is None or not e.cpu_parent.name.startswith("aten::"))]
-        busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / n_steps
-        wall_ms = wall * 1e3 / n_steps
-        if kernels:
-            print(f"[6] decode step B=1 {label} (profiler, {n_steps} steps): {wall_ms:.3f} ms "
-                  f"wall, {len(ops) / n_steps:.0f} top-level host ops and "
-                  f"{len(kernels) / n_steps:.0f} device operations per step, device time "
-                  f"{busy_ms:.3f} ms: device busy {busy_ms / wall_ms:.1%}, idle "
-                  f"{1 - busy_ms / wall_ms:.1%}")
-            by_name = Counter()
-            for e in kernels:
-                by_name[e.name] += e.time_range.elapsed_us() / 1e3 / n_steps
-            print(f"[6] decode step B=1 {label}, device time by operation (ms a step, share): "
-                  + "; ".join(f"{name[:90]} {t:.3f} ({t / busy_ms:.1%})"
-                              for name, t in by_name.most_common(5)))
-        else:
-            print(f"[6] decode step B=1 {label}: {wall_ms:.3f} ms wall under the profiler, "
-                  f"{len(ops) / n_steps:.0f} host ops per step; device time not measured "
-                  "(the profiler saw no kernels)")
+    profile_steps(torch, "[6] decode step B=1 eager",
+                  lambda: decode_step(params, cfg, states[1], feed))
+    profile_steps(torch, "[6] decode step B=1 replay", lambda: g1(feed))
+    return {"work": work, "tokens": tokens, "metrics": metrics, "delta_first": delta_first,
+            "delta_mode": delta_mode, "first_logits": [ls for _, ls in pairs],
+            "ref_logits": ref_logits}
 
 
-def phase_lm(torch, rows):
-    """Phases 5 and 6 on one set of seeded full-width weights."""
+def _clone_paged(state):
+    from repro_torch.models.attention import PagedKVCache
+    from repro_torch.models.lm import PagedDecodeState
+
+    return PagedDecodeState(kv=PagedKVCache(state.kv.k.clone(), state.kv.v.clone()),
+                            tables=state.tables.clone(), pos=state.pos.clone())
+
+
+def paged_graph_checks(torch, cfg, params, served):
+    """6b (b): a ``PagedGraphs`` of the pool's shapes against the eager
+    functions on a copy of its state, bit for bit: chunk graphs over eight
+    slots' prompts, steps with every slot and with some slots active, then
+    the same after one slot was moved onto other block rows after the
+    captures.  Also the eager chunked prefill's first-token logits against
+    the serving prefill's (phase 6), held as the kernel prefill is.
+    Returns the graphs, each slot's next feed token and the all-active
+    mask."""
+    from repro_torch.models import build_model
+    from repro_torch.models.lm import paged_decode_step, paged_prefill_chunk, paged_reset_slot
+    from repro_torch.runtime.serve_loop import PagedGraphs
+
+    bundle = build_model(cfg)
+    max_blocks = SERVE_CACHE_LEN // PAGED_BLOCK_SIZE
+    reserved0 = torch.cuda.memory_reserved()
+    g = PagedGraphs(bundle, params, n_slots=SERVE_SLOTS, n_blocks=SERVE_SLOTS * max_blocks,
+                    block_size=PAGED_BLOCK_SIZE, cache_len=SERVE_CACHE_LEN, name="check paged")
+    mem = {"step": torch.cuda.memory_reserved() - reserved0}
+    unequal_, checks, d_chunk = 0, 0, 0.0
+    work, first_logits = served["work"], served["first_logits"]
+
+    def same(a, b) -> None:
+        nonlocal unequal_, checks
+        unequal_ += 0 if torch.equal(a, b) else 1
+        checks += 1
+
+    def lease(slot, rows):
+        paged_reset_slot(g.state, slot, rows + [0] * (max_blocks - len(rows)))
+
+    def chunked(slot, i):
+        nonlocal d_chunk
+        prompt = torch.as_tensor(work[i][0][0], device="cuda")
+        for start in range(0, prompt.numel(), PAGED_CHUNK):
+            piece = prompt[start : start + PAGED_CHUNK]
+            ref = _clone_paged(g.state)
+            want = paged_prefill_chunk(params, cfg, ref, torch.tensor(slot, device="cuda"),
+                                       piece, torch.tensor(start, device="cuda"), SERVE_CACHE_LEN)
+            before = torch.cuda.memory_reserved()
+            new = len(piece) not in g.chunks
+            ids, logits = g.chunk(slot, piece.cpu().numpy(), start)
+            if new:
+                mem[f"chunk C={len(piece)}"] = torch.cuda.memory_reserved() - before
+            for a, b in ((ids, want[1]), (logits, want[2]), (g.state.pos, want[0].pos),
+                         (g.state.kv.k[:, 1:], ref.kv.k[:, 1:]),
+                         (g.state.kv.v[:, 1:], ref.kv.v[:, 1:])):
+                same(a, b)
+        d_chunk = max(d_chunk, float((want[2][0, -1] - first_logits[i]).abs().max()))
+        return int(ids[0])
+
+    def stepped(feeds, active):
+        feeds_t = torch.tensor(feeds, device="cuda")
+        active_t = torch.tensor(active, device="cuda")
+        ref = _clone_paged(g.state)
+        want = paged_decode_step(params, cfg, ref, feeds_t, active_t, SERVE_CACHE_LEN)
+        ids, logits = g.step(feeds_t, active_t)
+        for a, b in ((ids, want[1]), (logits, want[2]), (g.state.pos, want[0].pos),
+                     (g.state.kv.k[:, 1:], ref.kv.k[:, 1:]),
+                     (g.state.kv.v[:, 1:], ref.kv.v[:, 1:])):
+            same(a, b)
+        return [int(x) if on else f for x, f, on in zip(ids.tolist(), feeds, active)]
+
+    # Slot s leases rows 1 + 4 s .. 4 + 4 s (64 positions); rows 33.. stay free.
+    for slot in range(SERVE_SLOTS):
+        lease(slot, [1 + 4 * slot + b for b in range(4)])
+    feeds = [chunked(slot, slot) for slot in range(SERVE_SLOTS)]
+    every = [True] * SERVE_SLOTS
+    some = [slot % 3 != 1 for slot in range(SERVE_SLOTS)]
+    for active in (every, some, every):
+        feeds = stepped(feeds, active)
+    n_before = checks
+    # After the captures: slot 3 moves onto free rows and takes request 8.
+    lease(3, [50, 41, 63, 36])
+    feeds[3] = chunked(3, SERVE_SLOTS)
+    for active in (every, some):
+        feeds = stepped(feeds, active)
+    print(f"[6b] paged graphs vs eager (ids, logits, positions, block pool; bit for bit): "
+          f"{unequal_} of {checks} comparisons unequal ({n_before} before slot 3 moved onto "
+          f"rows 50/41/63/36, {checks - n_before} after); chunk graphs {sorted(g.chunks)}; "
+          "graph memory reserved " + ", ".join(f"{k} {v / 2**20:.1f} MiB" for k, v in mem.items()))
+    if unequal_:
+        fail(f"paged graphs differ from the eager functions in {unequal_} of {checks} comparisons")
+    bound = PREFILL_DIFF_FACTOR * served["delta_first"]
+    print(f"[6b] chunked prefill (eager, {PAGED_CHUNK}-position chunks) vs the serving prefill, "
+          f"first-token logits of {SERVE_SLOTS + 1} requests: max abs diff {d_chunk:.4e} "
+          f"(bound {PREFILL_DIFF_FACTOR} delta_first = {bound:.4e})")
+    if not d_chunk <= bound:
+        fail(f"chunked prefill differs from the serving prefill by {d_chunk} > {bound}")
+    return g, feeds, every
+
+
+def phase_lm_paged(torch, cfg, params, served):
+    """6b: the paged and speculative modes on phase 6's work and weights."""
+    import numpy as np
+
+    from repro_torch.kernels import build
+    from repro_torch.models.lm import paged_decode_step
+
+    work, gen = served["work"], served["tokens"]["generation"]
+    tokens, metrics = dict(served["tokens"]), dict(served["metrics"])
+    reserved0 = torch.cuda.memory_reserved()
+    tokens["paged"], metrics["paged"] = serve_work(
+        torch, cfg, params, "paged", work, "6b", block_size=PAGED_BLOCK_SIZE,
+        prefill_chunk=PAGED_CHUNK)
+    chunk_graphs = sorted(k for k, c in build.COUNTERS.items()
+                          if k.startswith("graph_replays paged:") and " chunk C=" in k and c.value)
+    print(f"[6b] paged pool: chunk graphs captured {len(chunk_graphs)} ({chunk_graphs}); device "
+          f"memory reserved {(torch.cuda.memory_reserved() - reserved0) / 2**20:.1f} MiB more "
+          "after the engine (block pool, step and chunk graphs)")
+    tokens["speculative"], metrics["speculative"] = serve_work(
+        torch, cfg, params, "speculative", work, "6b", spec_k=SPEC_K,
+        spec_draft_layers=cfg.n_layers // 2)
+
+    # (a) Speculative tokens are generation's exactly: each verify step is
+    # generation's B = 1 step on the same values.  Paged tokens may differ
+    # from generation's only at a near tie: where the eager B = 1 top-2 gap
+    # of the diverging token is below twice phase 6's control difference.
+    for i, (s_, g_) in enumerate(zip(tokens["speculative"], gen)):
+        if not np.array_equal(s_, g_):
+            j = int(np.flatnonzero(s_ != g_)[0]) if len(s_) == len(g_) else min(len(s_), len(g_))
+            fail(f"request {i}: speculative tokens differ from generation's at token {j}")
+    delta = max(served["delta_first"], served["delta_mode"])
+    n_div = 0
+    for i, (p_, g_) in enumerate(zip(tokens["paged"], gen)):
+        if np.array_equal(p_, g_):
+            continue
+        j = int(np.flatnonzero(p_ != g_)[0])
+        logits = served["first_logits"][i] if j == 0 else served["ref_logits"][i][j - 1]
+        gap = _top2_gap(torch, logits)
+        print(f"[6b] request {i}: paged diverges from generation at token {j} "
+              f"({int(p_[j])} vs {int(g_[j])}), top-2 gap {gap:.4e}")
+        if not gap < 2 * delta:
+            fail(f"request {i}: paged diverges at top-2 gap {gap} >= 2 delta ({delta})")
+        n_div += 1
+    print(f"[6b] tokens: speculative == generation for all {len(work)} requests; paged: "
+          f"{n_div} of {len(work)} diverge, each at a near tie (delta {delta:.4e})")
+
+    # (b) graphs against eager; a step eager against replay, and the
+    # profiler on one replayed step.
+    g, feeds, every = paged_graph_checks(torch, cfg, params, served)
+    feeds_t = torch.tensor(feeds, device="cuda")
+    active_t = torch.tensor(every, device="cuda")
+    ref = [_clone_paged(g.state)]
+
+    def eager():
+        ref[0] = paged_decode_step(params, cfg, ref[0], feeds_t, active_t, SERVE_CACHE_LEN)[0]
+
+    step_ms, runs = host_times_in_turns(
+        torch, {"eager": eager, "replay": partial(g.step, feeds_t, active_t)}, 5)
+    print(f"[6b] paged step, {SERVE_SLOTS} active slots (host clock, ending in synchronize, "
+          f"mean of 2 x 5 in turns): eager {step_ms['eager']:.3f} ms, replay "
+          f"{step_ms['replay']:.3f} ms; runs " + ", ".join(
+              f"{k} " + "/".join(f"{x:.3f}" for x in v) for k, v in runs.items()))
+    profile_steps(torch, f"[6b] paged step {SERVE_SLOTS} slots replay",
+                  partial(g.step, feeds_t, active_t))
+    del g
+
+    # (c) telemetry.
+    occ = metrics["paged"].get("block_occupancy", {})
+    spec = metrics["speculative"].get("spec_accept", {})
+    if not occ or not all(0.0 < x <= 1.0 for x in occ.values()):
+        fail(f"block occupancy {occ} not in (0, 1]")
+    if not spec or not all(row["rounds"] > 0 and row["drafted"] > 0 for row in spec.values()):
+        fail(f"speculative telemetry {spec}: want rounds > 0 and drafted > 0")
+
+    # (d) speed, printed and not gated.
+    def row(mode):
+        m = metrics[mode]
+        return (f"{mode} {m['tokens_per_s']:.1f} tok/s, ttft mean {m['ttft_mean_s'] * 1e3:.1f} "
+                f"p99 {m['ttft_p99_s'] * 1e3:.1f} ms, per-token p50 "
+                f"{m['per_token_p50_s'] * 1e3:.2f} p99 {m['per_token_p99_s'] * 1e3:.2f} ms")
+
+    tps = {mode: m["tokens_per_s"] for mode, m in metrics.items()}
+    modes = ("generation", "continuous", "paged", "speculative")
+    print("[6b] serving, four modes: " + "; ".join(row(m) for m in modes))
+    print(f"[6b] ratios (not gated): paged / continuous {tps['paged'] / tps['continuous']:.3f} "
+          f"(the reference's gate 1.3); continuous / generation "
+          f"{tps['continuous'] / tps['generation']:.3f} (gate 2.0); speculative / generation "
+          f"{tps['speculative'] / tps['generation']:.3f}; block occupancy {occ}; spec accept "
+          + ", ".join(f"{t} rate {r['rate']:.4f} ({r['accepted']}/{r['drafted']} over "
+                      f"{r['rounds']} rounds)" for t, r in spec.items()))
+
+
+def phase_lm(torch, rows, ended=lambda phase: None):
+    """Phases 5, 6 and 6b on one set of seeded full-width weights."""
     from repro_torch.models import build_model
 
     cfg = _lm_config()
     params = build_model(cfg).init(torch.Generator().manual_seed(0), "cuda")
     phase_lm_prefill(torch, cfg, params, rows)
-    phase_lm_serving(torch, cfg, params)
+    ended("5 prefill")
+    served = phase_lm_serving(torch, cfg, params)
+    ended("6 serving")
+    phase_lm_paged(torch, cfg, params, served)
+    ended("6b paged and speculative")
 
 
 def main() -> None:
@@ -1987,8 +2227,7 @@ def main() -> None:
     phase_device_ensemble(torch, PAPER, rows, res, smi)
     ended("4c device ensemble")
     del res
-    phase_lm(torch, rows)
-    ended("5-6 LM")
+    phase_lm(torch, rows, ended)
     print(f"[7] all phases passed in {time.perf_counter() - t_start:.1f}s; seconds by phase "
           f"{phase_walls}")
     keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

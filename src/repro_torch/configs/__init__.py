@@ -28,7 +28,7 @@ def get_arch(arch_id: str) -> ArchConfig:
     if arch_id in REFERENCE_ONLY:
         raise NotImplementedError(
             f"arch '{arch_id}' (family '{REFERENCE_ONLY[arch_id]}') is not ported yet "
-            f"(ROADMAP Queue 1 item 10); the port runs {sorted(ARCHS)}"
+            f"(ROADMAP Queue 1 item 8); the port runs {sorted(ARCHS)}"
         )
     if arch_id not in ARCHS:
         raise KeyError(f"unknown arch '{arch_id}'; available: {sorted(ARCHS)}")

@@ -2,7 +2,7 @@
 
 The port serves the dense decoder-only family with the SwiGLU MLP only; the
 MoE, SSM, hybrid, encoder-decoder and VLM families of the reference, and its
-squared-ReLU MLP, wait (ROADMAP Queue 1 item 10), and asking for them raises
+squared-ReLU MLP, wait (ROADMAP Queue 1 item 8), and asking for them raises
 :class:`NotImplementedError`.
 """
 from __future__ import annotations
@@ -16,7 +16,11 @@ from typing import Dict, Optional
 ATTN_IMPLS = ("kernel", "chunked", "xla")
 # The reference's names for the same three ("pallas" is its TPU kernel).
 _REFERENCE_ATTN_IMPL = {"pallas": "kernel", "chunked": "chunked", "xla": "xla"}
-NOT_PORTED = "not ported yet (ROADMAP Queue 1 item 10)"
+# What a refusal names: the LM families and their parameter groups, the
+# training path, and the sharded per-cell entry points.
+NOT_PORTED = "not ported yet (ROADMAP Queue 1 item 8)"
+NOT_TRAINED = "not ported yet (ROADMAP Queue 1 item 9)"
+NOT_SHARDED = "not ported yet (ROADMAP Queue 1 items 5 and 10)"
 
 
 @dataclass(frozen=True)

@@ -5,8 +5,10 @@
 Prefill and decode are two balancer tag families routed ``cost_aware``
 across replicas, and each decode server is a slot pool that admits
 requests into the in-flight batch at token boundaries.  ``--mode
-generation`` runs the request-per-generation baseline; both modes emit the
-same greedy tokens.  The reduced config is the default; ``--no-reduced``
+generation`` runs the request-per-generation baseline, ``--kv paged`` (or
+``--mode paged``) the block-table pool with chunked prefill, and ``--mode
+speculative`` greedy self-speculative decoding; every mode emits the same
+greedy tokens.  The reduced config is the default; ``--no-reduced``
 serves the full-width model (on the card).  ``--device cpu`` runs the
 plain PyTorch versions of the kernels.
 """
@@ -31,11 +33,19 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--reduced", action=argparse.BooleanOptionalAction, default=True)
     ap.add_argument("--mode", choices=["continuous", "generation", "paged", "speculative"],
                     default="continuous")
-    ap.add_argument("--kv", choices=["slab", "paged"], default="slab")
+    ap.add_argument("--kv", choices=["slab", "paged"], default="slab",
+                    help="decode-pool KV layout; --kv paged upgrades --mode continuous "
+                    "to the block-table pool")
     ap.add_argument("--requests", type=int, default=24)
     ap.add_argument("--replicas", type=int, default=1)
     ap.add_argument("--slots", type=int, default=8)
     ap.add_argument("--cache-len", type=int, default=96)
+    ap.add_argument("--block-size", type=int, default=16)
+    ap.add_argument("--blocks", type=int, default=None,
+                    help="usable KV blocks in the paged pool (default: fully provision "
+                    "--slots worst-case sequences)")
+    ap.add_argument("--prefill-chunk", type=int, default=16)
+    ap.add_argument("--spec-k", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
@@ -46,10 +56,14 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     args = build_parser().parse_args(argv)
     names = args.arch or ["qwen2-0.5b"]
     variants = {n: (get_arch(n).reduced() if args.reduced else get_arch(n)) for n in names}
+    if args.mode == "continuous" and args.kv == "paged":
+        args.mode = "paged"  # the engine's own promotion
     rng = np.random.default_rng(args.seed)
     engine = ServingEngine(
         variants, mode=args.mode, kv=args.kv, n_replicas=args.replicas,
-        n_slots=args.slots, cache_len=args.cache_len, seed=args.seed, device=args.device,
+        n_slots=args.slots, cache_len=args.cache_len, block_size=args.block_size,
+        n_blocks=args.blocks, prefill_chunk=args.prefill_chunk, spec_k=args.spec_k,
+        seed=args.seed, device=args.device,
     )
     with engine:
         # Warm up (allocator, library handles) so the window is steady state.
@@ -79,6 +93,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
               f"p50={m['per_token_p50_s'] * 1e3:.2f}ms p99={m['per_token_p99_s'] * 1e3:.2f}ms")
         for name, occ in m.get("slot_occupancy", {}).items():
             print(f"{tag}   {name}: mean slot occupancy {occ:.2f}")
+        for name, occ in m.get("block_occupancy", {}).items():
+            print(f"{tag}   {name}: mean block occupancy {occ:.2f}")
+        for stag, sp in m.get("spec_accept", {}).items():
+            print(f"{tag}   {stag}: spec accept rate {sp['rate']:.2f} "
+                  f"({sp['accepted']}/{sp['drafted']} over {sp['rounds']} rounds)")
         for row in engine.stats_table():
             print(f"{tag}   {row['tag']}: {row['n_done']} done, "
                   f"{row['tokens']} pooled tokens, ewma {row['ewma_s'] * 1e3:.2f}ms")

@@ -1,5 +1,12 @@
 """The dense decoder-only LM zoo of the port (plain PyTorch, per-layer
 parameter dicts)."""
-from .zoo import ModelBundle, build_model, input_specs, params_from_reference
+from .zoo import (
+    ModelBundle,
+    build_model,
+    input_specs,
+    paged_state_from_reference,
+    params_from_reference,
+)
 
-__all__ = ["ModelBundle", "build_model", "input_specs", "params_from_reference"]
+__all__ = ["ModelBundle", "build_model", "input_specs", "paged_state_from_reference",
+           "params_from_reference"]

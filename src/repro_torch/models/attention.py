@@ -5,8 +5,12 @@ constraints are gone, and the decode cache carries a position per batch row
 (``pos`` (B,), ``pos_buf`` (B, W)), so rows admitted at different token
 boundaries decode together in one batched step where the reference
 ``vmap``s a B = 1 step over the slots.  The decode cache is updated in
-place (it is the largest state a step touches).  The paged and chunked
-decode functions of the reference are not ported (ROADMAP Queue 1 item 10).
+place (it is the largest state a step touches).
+
+The paged path keeps one block pool for every slot
+(:class:`PagedKVCache`); :func:`decode_qkv` and :func:`chunk_qkv` are the
+write halves, :func:`attend_view` and :func:`attend_view_chunk` the read
+halves over a slot's identity-mapped view of its blocks.
 """
 from __future__ import annotations
 
@@ -101,6 +105,29 @@ def init_kv_cache(cfg: ArchConfig, batch: int, seq_len: int, dtype, device) -> K
     )
 
 
+class PagedKVCache(NamedTuple):
+    """Shared block-pool KV cache for paged decoding.
+
+    ``k``/``v``: (L, n_block_rows, block_size, Hkv, hd).  Row 0 is a
+    reserved scratch block: inactive slots' appends are routed there, so a
+    stale slot never writes into blocks that live sequences own.  Slots map
+    logical positions to pool rows through the block tables of
+    ``lm.PagedDecodeState``.
+    """
+
+    k: torch.Tensor
+    v: torch.Tensor
+
+
+def init_paged_kv_cache(cfg: ArchConfig, n_block_rows: int, block_size: int, dtype,
+                        device) -> PagedKVCache:
+    shape = (cfg.n_layers, n_block_rows, block_size, cfg.n_kv_heads, cfg.hd)
+    return PagedKVCache(
+        k=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape, dtype=dtype, device=device),
+    )
+
+
 def decode_qkv(params: Params, x: torch.Tensor, pos: torch.Tensor, cfg: ArchConfig):
     """Project + RoPE one decode position per row: x (B, 1, d), pos (B,) ->
     q (B, H, 1, hd), k and v (B, Hkv, 1, hd)."""
@@ -109,6 +136,78 @@ def decode_qkv(params: Params, x: torch.Tensor, pos: torch.Tensor, cfg: ArchConf
         q = apply_rope(q, pos[:, None], cfg.rope_theta)
         k_new = apply_rope(k_new, pos[:, None], cfg.rope_theta)
     return q, k_new, v_new
+
+
+def chunk_qkv(params: Params, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig):
+    """Project + RoPE a chunk of C positions: x (B, C, d), positions (C,) ->
+    q (B, H, C, hd), k and v (B, Hkv, C, hd).
+
+    Projections and RoPE act on each position alone, so position i's k and
+    v are the values the per-token path writes there."""
+    q, k_new, v_new = _project_qkv(params, x, cfg)
+    if cfg.rope_theta > 0:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k_new = apply_rope(k_new, positions, cfg.rope_theta)
+    return q, k_new, v_new
+
+
+def _attend(params: Params, q: torch.Tensor, view_k: torch.Tensor, view_v: torch.Tensor,
+            valid: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """q (B, H, C, hd) against keys and values (B, Hkv, W, hd) under
+    ``valid`` (B, C, W) -> (B, C, d).  Scores accumulate the input values
+    in fp32 (the reference's ``preferred_element_type=float32``); masked
+    scores are -1e30."""
+    b, _, c, hd = q.shape
+    group = cfg.n_heads // cfg.n_kv_heads
+    qg = q.reshape(b, cfg.n_kv_heads, group, c, hd)
+    scores = torch.einsum("bkgqd,bksd->bkgqs", qg.float(), view_k.float()) * (hd**-0.5)
+    scores = torch.where(valid[:, None, None], scores, -1e30)
+    p = torch.softmax(scores, dim=-1)
+    o = torch.einsum("bkgqs,bksd->bkgqd", p.to(view_v.dtype), view_v)
+    o = o.permute(0, 3, 1, 2, 4).reshape(b, c, cfg.n_heads * hd)
+    return o @ params["wo"]
+
+
+def _valid(j: torch.Tensor, pos: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """A key at position ``j`` is visible from a query at ``pos``: ``j <=
+    pos``, and inside the sliding window."""
+    valid = j <= pos
+    if cfg.sliding_window is not None:
+        valid = valid & (j > pos - cfg.sliding_window)
+    return valid
+
+
+def attend_view(
+    params: Params,
+    q: torch.Tensor,  # (B, H, 1, hd) RoPE'd queries from decode_qkv
+    view_k: torch.Tensor,  # (B, Hkv, W, hd) identity-mapped cache view
+    view_v: torch.Tensor,
+    pos: torch.Tensor,  # (B,) each row's position (already written at index pos)
+    cfg: ArchConfig,
+) -> torch.Tensor:
+    """Attention read against an identity-mapped cache view -> (B, 1, d).
+
+    The view's index is the logical position, so key j is valid where
+    ``j <= pos``: element for element the mask :func:`attention_decode`
+    derives from ``pos_buf`` while the cache never wraps."""
+    j = torch.arange(view_k.shape[2], device=q.device)
+    return _attend(params, q, view_k, view_v, _valid(j, pos[:, None, None], cfg), cfg)
+
+
+def attend_view_chunk(
+    params: Params,
+    q: torch.Tensor,  # (B, H, C, hd) RoPE'd queries from chunk_qkv
+    view_k: torch.Tensor,  # (B, Hkv, W, hd) identity-mapped cache view
+    view_v: torch.Tensor,
+    positions: torch.Tensor,  # (C,): query i sits at positions[i]
+    cfg: ArchConfig,
+) -> torch.Tensor:
+    """Multi-query attention over an identity-mapped view -> (B, C, d).
+
+    Query i applies :func:`attend_view`'s rule at ``positions[i]``: the
+    chunk's own keys are already in the view, later positions masked."""
+    j = torch.arange(view_k.shape[2], device=q.device)
+    return _attend(params, q, view_k, view_v, _valid(j, positions[None, :, None], cfg), cfg)
 
 
 def attention_decode(
@@ -123,7 +222,6 @@ def attention_decode(
     """Returns (out (B, 1, d), layer_k, layer_v, pos_buf); the cache and
     ``pos_buf`` are written in place at slot ``pos % W`` of each row."""
     b = x.shape[0]
-    hd = cfg.hd
     w = layer_k.shape[2]
     q, k_new, v_new = decode_qkv(params, x, pos, cfg)
 
@@ -133,16 +231,6 @@ def attention_decode(
     layer_v[rows, :, slot] = v_new[:, :, 0]
     pos_buf[rows, slot] = pos
 
-    group = cfg.n_heads // cfg.n_kv_heads
-    qg = q.reshape(b, cfg.n_kv_heads, group, hd)
-    # fp32 accumulation of the input values (the reference's
-    # preferred_element_type=float32).
-    scores = torch.einsum("bkgd,bksd->bkgs", qg.float(), layer_k.float()) * (hd**-0.5)
-    valid = (pos_buf >= 0) & (pos_buf <= pos[:, None])  # (B, W)
-    if cfg.sliding_window is not None:
-        valid = valid & (pos_buf > pos[:, None] - cfg.sliding_window)
-    scores = torch.where(valid[:, None, None, :], scores, -1e30)
-    p = torch.softmax(scores, dim=-1)
-    o = torch.einsum("bkgs,bksd->bkgd", p.to(layer_v.dtype), layer_v)
-    o = o.reshape(b, 1, cfg.n_heads * hd)
-    return o @ params["wo"], layer_k, layer_v, pos_buf
+    valid = (pos_buf >= 0) & _valid(pos_buf, pos[:, None], cfg)  # (B, W)
+    out = _attend(params, q, layer_k, layer_v, valid[:, None, :], cfg)
+    return out, layer_k, layer_v, pos_buf

@@ -11,6 +11,7 @@ import torch
 from repro_torch.configs.base import NOT_PORTED, ArchConfig, ShapeConfig
 
 from . import lm
+from .attention import PagedKVCache
 from .layers import Params, dtype_of
 
 
@@ -99,3 +100,22 @@ def params_from_reference(tree: Dict, cfg: ArchConfig, device="cuda") -> Params:
     params = {k: convert(v) for k, v in tree.items() if k != "blocks"}
     params["blocks"] = [convert(b) for b in _per_layer(tree["blocks"], cfg.n_layers)]
     return params
+
+
+def paged_state_from_reference(ref_state: Any, cfg: ArchConfig,
+                               device="cuda") -> lm.PagedDecodeState:
+    """The port's :class:`~repro_torch.models.lm.PagedDecodeState` from the
+    reference's (numpy leaves; the block pool stacked over layers, as the
+    port's): the pool in ``cfg.compute_dtype``, tables and positions in
+    int64.  The reference's recurrent fields must be empty."""
+    if ref_state.ssm_h is not None or ref_state.ssm_conv is not None:
+        raise NotImplementedError(f"recurrent paged state: {NOT_PORTED}")
+    dtype = dtype_of(cfg.compute_dtype)
+    kv = PagedKVCache(
+        k=_to_tensor(ref_state.kv.k, dtype, device), v=_to_tensor(ref_state.kv.v, dtype, device)
+    )
+    return lm.PagedDecodeState(
+        kv=kv,
+        tables=_to_tensor(ref_state.tables, torch.int64, device),
+        pos=_to_tensor(ref_state.pos, torch.int64, device),
+    )

@@ -7,20 +7,28 @@ are two balancer tag families (``prefill:<variant>`` and
 one batched decode step; ``gen:<variant>`` servers are the
 generation-granularity baseline.  Greedy sampling throughout.
 
-Every server decodes through a :class:`DecodeGraph`: the decode step and
-its argmax captured once as a CUDA graph over a static decode state (the
-counterpart of the reference's jitted ``prefill_state`` and decode steps),
-so a token costs one replay instead of ~2,700 eager launches.  A prompt
-replays the B = 1 graph once a position.
+``mode='paged'`` serves through :class:`PagedDecodePool` servers, each over
+one shared KV block pool, prefilling through the pool in chunks;
+``mode='speculative'`` serves ``spec:<variant>`` servers that draft with
+the model's own bottom half and verify with the whole model.
 
-Not ported yet (ROADMAP Queue 1 item 10): the paged and speculative modes,
-and the sharded per-cell entry points (``shard_prefill_step`` /
-``shard_decode_step``), which wait with the sharding layer.
+Every server decodes through CUDA graphs captured once over static state
+(the counterparts of the reference's jitted steps), so a token costs one
+replay instead of ~2,700 eager launches: a :class:`DecodeGraph` (the decode
+step and its argmax; a prompt replays the B = 1 graph once a position), a
+:class:`PagedGraphs` (the paged step, and one chunked-prefill graph per
+chunk length), and the speculative verify graphs (k + 1 decode steps each).
+
+Not ported yet (ROADMAP Queue 1 items 5 and 10): the sharded per-cell entry
+points (``shard_prefill_step`` / ``shard_decode_step``), which wait with the
+sharding layer.
 """
 from __future__ import annotations
 
 import threading
 import time
+from dataclasses import replace
+from functools import partial
 from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
@@ -31,17 +39,27 @@ from repro_torch.balancer import (
     DecodePool,
     DecodeResult,
     LoadBalancer,
+    PagedDecodePool,
     PromptTooLongError,
     Server,
 )
-from repro_torch.configs.base import NOT_PORTED, ArchConfig
+from repro_torch.configs.base import NOT_SHARDED, ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.graphs import StaticGraph
 from repro_torch.models import ModelBundle, build_model
 from repro_torch.models.attention import KVCache
-from repro_torch.models.lm import DecodeState, init_decode_state, slot_insert
+from repro_torch.models.lm import (
+    DecodeState,
+    check_paged_support,
+    init_decode_state,
+    init_paged_state,
+    paged_decode_step,
+    paged_prefill_chunk,
+    paged_reset_slot,
+    slot_insert,
+)
 
-MODES = ("continuous", "generation")
+MODES = ("continuous", "generation", "paged", "speculative")
 
 
 def _device_of(params) -> torch.device:
@@ -173,6 +191,264 @@ def make_decode_pool(
     )
 
 
+class PagedGraphs:
+    """A paged pool's device state and the CUDA graphs over it (eager on
+    the CPU; see :class:`~repro_torch.graphs.StaticGraph`).
+
+    ``state`` is the static :class:`~repro_torch.models.lm.PagedDecodeState`:
+    block pool, tables and positions.  ``step(tokens, active)`` (both
+    ``(n_slots,)``) replays :func:`~repro_torch.models.lm.paged_decode_step`
+    and returns ``(ids (n_slots,), logits (n_slots, 1, V))``;
+    ``chunk(slot, tokens, start_pos)`` replays the graph of
+    :func:`~repro_torch.models.lm.paged_prefill_chunk` for ``len(tokens)``
+    (captured at its first use; one per chunk length) and returns
+    ``(id (1,), logits (1, 1, V))``.  Both write the new positions into
+    ``state.pos``.  A slot is leased with
+    :func:`~repro_torch.models.lm.paged_reset_slot` on ``state``, which
+    writes its table row and position in place: no graph holds a slot's
+    blocks as a host value.
+    """
+
+    def __init__(self, bundle: ModelBundle, params, *, n_slots: int, n_blocks: int,
+                 block_size: int, cache_len: int, name: str) -> None:
+        cfg = bundle.cfg
+        self.device = _device_of(params)
+        self.name = name
+        max_blocks = -(-cache_len // block_size)
+        self.state = init_paged_state(cfg, n_slots, n_blocks + 1, block_size, max_blocks,
+                                      cache_len, self.device)
+
+        def step(tokens: torch.Tensor, active: torch.Tensor):
+            new, ids, logits = paged_decode_step(params, cfg, self.state, tokens, active, cache_len)
+            self.state.pos.copy_(new.pos)
+            return ids, logits
+
+        def chunk(slot: torch.Tensor, tokens: torch.Tensor, start_pos: torch.Tensor):
+            new, ids, logits = paged_prefill_chunk(params, cfg, self.state, slot, tokens,
+                                                   start_pos, cache_len)
+            self.state.pos.copy_(new.pos)
+            return ids, logits
+
+        self._chunk_fn = chunk
+        # The capture's warm-up runs the step with every slot inactive: it
+        # writes the scratch row only and moves no position.
+        self.step = StaticGraph(step, [
+            torch.zeros((n_slots,), dtype=torch.int64, device=self.device),
+            torch.zeros((n_slots,), dtype=torch.bool, device=self.device),
+        ], name=f"{name} step")
+        self.chunks: Dict[int, StaticGraph] = {}
+
+    def chunk(self, slot: int, tokens, start_pos: int):
+        inputs = [
+            torch.tensor(int(slot), dtype=torch.int64),
+            torch.as_tensor(np.asarray(tokens, dtype=np.int64).reshape(-1)),
+            torch.tensor(int(start_pos), dtype=torch.int64),
+        ]
+        graph = self.chunks.get(len(inputs[1]))
+        if graph is None:
+            # Captured on this call's own inputs: the warm-up writes the
+            # chunk's keys and values, and the replay below writes the same
+            # ones again.
+            graph = self.chunks[len(inputs[1])] = StaticGraph(
+                self._chunk_fn, [x.to(self.device) for x in inputs],
+                name=f"{self.name} chunk C={len(inputs[1])}",
+            )
+        return graph(*inputs)
+
+
+def make_paged_decode_pool(
+    bundle: ModelBundle,
+    params,
+    *,
+    n_slots: int,
+    cache_len: int,
+    block_size: int = 16,
+    n_blocks: Optional[int] = None,
+    prefill_chunk: int = 16,
+    name: str,
+    tag: str,
+) -> PagedDecodePool:
+    """A :class:`PagedDecodePool` over the block-table decode path.
+
+    The device state is one shared ``(L, n_blocks + 1, block_size, Hkv,
+    hd)`` KV pool (row 0 is scratch) and per-slot block tables; requests
+    carry raw ``(prompt, n_new, eos)`` thetas and are prefilled *through
+    the pool*, ``prefill_chunk`` positions per token boundary.  ``n_blocks``
+    is the usable block count; None provisions ``n_slots`` worst-case
+    sequences.  The pool's state is the static state of a
+    :class:`PagedGraphs`, made when the pool first allocates its state: a
+    step is one copy of tokens and mask in, one replay and one copy of the
+    ``(n_slots,)`` ids out.
+    """
+    check_paged_support(bundle.cfg, cache_len)
+    max_blocks = -(-cache_len // block_size)
+    if n_blocks is None:
+        n_blocks = n_slots * max_blocks
+    graphs: Optional[PagedGraphs] = None
+
+    def init_state():
+        nonlocal graphs
+        graphs = PagedGraphs(bundle, params, n_slots=n_slots, n_blocks=n_blocks,
+                             block_size=block_size, cache_len=cache_len, name=name)
+        return graphs.state
+
+    def own(state) -> None:
+        if state is not graphs.state:
+            raise ValueError("a paged pool steps only the state its graphs were captured over")
+
+    def step_fn(state, tokens, active):
+        own(state)
+        ids, _ = graphs.step(torch.as_tensor(np.asarray(tokens, dtype=np.int64)),
+                             torch.as_tensor(np.asarray(active, dtype=bool)))
+        return state, ids.cpu().numpy()
+
+    def chunk_fn(state, slot, chunk, start_pos):
+        own(state)
+        ids, _ = graphs.chunk(slot, chunk, start_pos)
+        return state, int(ids[0])
+
+    def reset_fn(state, slot, row):
+        own(state)
+        return paged_reset_slot(state, slot, row)
+
+    return PagedDecodePool(
+        step_fn,
+        chunk_fn,
+        reset_fn,
+        init_state_fn=init_state,
+        n_slots=n_slots,
+        n_blocks=n_blocks,
+        block_size=block_size,
+        max_blocks_per_slot=max_blocks,
+        max_positions=cache_len,
+        prefill_chunk=prefill_chunk,
+        name=name,
+        capacity_tags=[tag],
+    )
+
+
+def speculative_supported(cfg: ArchConfig, cache_len: int) -> bool:
+    """Self-speculative decoding rewinds ``pos`` and relies on the stale
+    entries past it being masked, so the cache must never wrap."""
+    return cfg.sliding_window is None or cfg.sliding_window >= cache_len
+
+
+def make_speculative_fn(
+    bundle: ModelBundle,
+    params,
+    cache_len: int,
+    *,
+    spec_k: int = 4,
+    draft_layers: Optional[int] = None,
+    clock: Callable[[], float] = time.monotonic,
+    on_round: Optional[Callable[[int, int], None]] = None,
+) -> Callable[[Tuple], DecodeResult]:
+    """Greedy self-speculative handler for a ``spec:<variant>`` server.
+
+    The draft is the model's own bottom ``draft_layers`` blocks (default
+    ``n_layers // 2``): a list slice of the same weight tensors.  A round:
+    the draft proposes ``spec_k`` tokens, each fed back on the card; the
+    target verifies them in one replay of a graph of ``k + 1`` decode steps
+    (one graph per k in 0..``spec_k``) and the accepted prefix is emitted.
+    Each verify step is the B = 1 step of generation mode on the same
+    values, so the tokens are generation mode's.  Target and draft each
+    have a B = 1 :class:`DecodeGraph` (the prompt and the draft's steps).
+
+    Across rounds the target rewinds ``pos`` to the last verified position
+    (stale entries past it are masked by ``pos_buf <= pos``, which holds
+    while the cache never wraps); the draft keeps ``draft_ok``, how many of
+    its consumed feeds were true tokens, and catches up from there.
+    ``on_round(accepted, drafted)`` feeds the accept-rate telemetry.
+    """
+    cfg = bundle.cfg
+    if not speculative_supported(cfg, cache_len):
+        raise ValueError(f"speculative decoding needs sliding_window >= cache_len "
+                         f"({cfg.sliding_window} < {cache_len})")
+    if spec_k < 1:
+        raise ValueError(f"spec_k must be >= 1, got {spec_k}")
+    d_layers = draft_layers if draft_layers is not None else max(1, cfg.n_layers // 2)
+    if not 1 <= d_layers <= cfg.n_layers:
+        raise ValueError(f"draft_layers {d_layers} out of range")
+    d_bundle = build_model(replace(cfg, n_layers=d_layers))
+    d_params = {**params, "blocks": params["blocks"][:d_layers]}
+    device = _device_of(params)
+    graphs: Optional[Tuple[DecodeGraph, DecodeGraph, List[StaticGraph]]] = None
+
+    def verify_graph(target: DecodeGraph, k: int) -> StaticGraph:
+        def verify(feeds: torch.Tensor) -> torch.Tensor:  # (k + 1,): last token + k drafts
+            ids = []
+            for i in range(k + 1):
+                feed = feeds[i : i + 1].reshape(1, 1)
+                logits, new = bundle.decode_step(params, target.state, feed)
+                target.state.pos.copy_(new.pos)
+                ids.append(torch.argmax(logits[:, -1], dim=-1))
+            return torch.cat(ids)
+
+        return StaticGraph(verify, [torch.zeros((k + 1,), dtype=torch.int64, device=device)],
+                           name=f"spec verify k={k}")
+
+    def generate(theta) -> DecodeResult:
+        nonlocal graphs
+        prompt, n_new, eos = theta
+        prompt = np.asarray(prompt, dtype=np.int64).reshape(-1)
+        s_len, n_new = len(prompt), int(n_new)
+        if graphs is None:
+            target = DecodeGraph(bundle, params, 1, cache_len, name="spec target B=1")
+            graphs = (target, DecodeGraph(d_bundle, d_params, 1, cache_len, name="spec draft B=1"),
+                      [verify_graph(target, k) for k in range(spec_k + 1)])
+        target, draft, verify = graphs
+        # The prefill resets the state, also of what the verify captures wrote.
+        ids, _ = target.prefill(_prompt_tensor(prompt, device))
+        tokens = [int(ids[0])]
+        times = [clock()]
+        draft.prefill(_prompt_tensor(prompt, device))
+        draft_ok = s_len  # leading draft feeds that were true tokens
+        while len(tokens) < n_new and (eos is None or tokens[-1] != eos):
+            t_len = len(tokens)
+            # Clamp so the verify steps never write past the cache or the
+            # budget; k may reach 0 (a round of one plain step).
+            k = max(0, min(spec_k, cache_len - (s_len + t_len), n_new - t_len - 1))
+            # Draft catch-up: the true feeds it has not consumed, at least
+            # one (seq[s + t - 1], whose output is the first draft).
+            seq = prompt.tolist() + tokens
+            draft.state.pos.fill_(draft_ok)
+            for f in seq[draft_ok : s_len + t_len]:
+                d_ids, _ = draft(torch.full((1, 1), f, dtype=torch.int64))
+            drafts = []
+            while len(drafts) < k:
+                drafts.append(d_ids)
+                if len(drafts) < k:
+                    d_ids, _ = draft(d_ids.reshape(1, 1))
+            feeds = torch.cat([torch.full((1,), tokens[-1], dtype=torch.int64, device=device),
+                               *drafts])
+            greedy = verify[k](feeds).cpu().numpy()
+            proposed = feeds[1:].cpu().numpy()
+            accepted = 0
+            while accepted < k and int(proposed[accepted]) == int(greedy[accepted]):
+                accepted += 1
+            if on_round is not None and k > 0:
+                on_round(accepted, k)
+            now = clock()
+            stop = False
+            for g in greedy[: accepted + 1]:
+                tokens.append(int(g))
+                times.append(now)
+                if len(tokens) >= n_new or (eos is not None and int(g) == eos):
+                    stop = True
+                    break
+            if stop:
+                break
+            # Rewind past the first wrong feed: the valid feeds were the last
+            # emitted token and the accepted drafts.
+            target.state.pos.fill_(s_len + t_len + accepted)
+            # The draft consumed drafts[:-1]; its true prefix grows by the
+            # accepted ones it ate.
+            draft_ok = s_len + t_len + min(accepted, max(k - 1, 0))
+        return DecodeResult(tokens=np.asarray(tokens, dtype=np.int64), token_times=times)
+
+    return generate
+
+
 def make_generate_fn(
     bundle: ModelBundle,
     params,
@@ -213,6 +489,10 @@ class Generation:
     stages.  ``result()`` joins the chain.
     """
 
+    # The single-dispatch modes and the tag family each submits to;
+    # continuous (slab) is the one two-stage mode.
+    _SINGLE_TAGS = {"generation": "gen", "paged": "prefill", "speculative": "spec"}
+
     def __init__(self, lb: LoadBalancer, variant: str, theta, mode: str) -> None:
         self._lb = lb
         self.variant = variant
@@ -220,8 +500,9 @@ class Generation:
         self._result: Optional[DecodeResult] = None
         self._error: Optional[BaseException] = None
         self._done = threading.Event()
-        if mode == "generation":
-            self._lb.submit_async(theta, tag=f"gen:{variant}").add_done_callback(self._on_final)
+        if mode in self._SINGLE_TAGS:
+            tag = f"{self._SINGLE_TAGS[mode]}:{variant}"
+            self._lb.submit_async(theta, tag=tag).add_done_callback(self._on_final)
         else:
             self._lb.submit_async(theta, tag=f"prefill:{variant}").add_done_callback(
                 self._on_prefill
@@ -263,8 +544,12 @@ class ServingEngine:
 
     ``mode='continuous'`` builds per-variant ``prefill:<v>`` servers and
     ``decode:<v>`` pools; ``mode='generation'`` builds the ``gen:<v>``
-    baseline.  Both take the theta ``(prompt, n_new, eos)`` and sample
-    greedily.  ``params`` maps a variant to its port parameters (the tests
+    baseline; ``mode='paged'`` (or ``kv='paged'`` with continuous) builds a
+    :class:`PagedDecodePool` under ``prefill:<v>`` that prefills through its
+    block pool (``block_size``, ``n_blocks``, ``prefill_chunk``);
+    ``mode='speculative'`` builds ``spec:<v>`` servers (``spec_k``,
+    ``spec_draft_layers``).  All take the theta ``(prompt, n_new, eos)``
+    and sample greedily.  ``params`` maps a variant to its port parameters (the tests
     pass the reference engine's weights this way); a variant without them is
     initialised from ``torch.Generator().manual_seed(seed + i)``.
     """
@@ -278,18 +563,23 @@ class ServingEngine:
         n_replicas: int = 1,
         n_slots: int = 4,
         cache_len: int = 96,
+        block_size: int = 16,
+        n_blocks: Optional[int] = None,
+        prefill_chunk: int = 16,
+        spec_k: int = 4,
+        spec_draft_layers: Optional[int] = None,
         policy: str = "cost_aware",
         seed: int = 0,
         exact_telemetry: bool = False,
         device: str = "cuda",
         params: Optional[Mapping[str, object]] = None,
     ) -> None:
-        if mode in ("paged", "speculative") or kv == "paged":
-            raise NotImplementedError(f"serving mode '{mode}' / kv '{kv}': {NOT_PORTED}")
         if mode not in MODES:
             raise ValueError(f"unknown serving mode '{mode}'")
-        if kv != "slab":
+        if kv not in ("slab", "paged"):
             raise ValueError(f"unknown kv layout '{kv}'")
+        if mode == "continuous" and kv == "paged":
+            mode = "paged"  # paged is continuous batching over the block pool
         dev = resolve_device(device)
         self.mode = mode
         self.cache_len = cache_len
@@ -316,6 +606,26 @@ class ServingEngine:
                         bundle, p, n_slots=n_slots, cache_len=cache_len,
                         name=f"decode:{vname}#{r}", tag=f"decode:{vname}",
                     ))
+                elif mode == "paged":
+                    # One pool a replica: prefill runs through it in chunks,
+                    # so the prefill tag routes straight here.
+                    servers.append(make_paged_decode_pool(
+                        bundle, p, n_slots=n_slots, cache_len=cache_len,
+                        block_size=block_size, n_blocks=n_blocks, prefill_chunk=prefill_chunk,
+                        name=f"paged:{vname}#{r}", tag=f"prefill:{vname}",
+                    ))
+                elif mode == "speculative":
+                    if speculative_supported(cfg, cache_len):
+                        fn = make_speculative_fn(
+                            bundle, p, cache_len, spec_k=spec_k, draft_layers=spec_draft_layers,
+                            on_round=partial(self._record_spec, f"spec:{vname}"),
+                        )
+                    else:
+                        # A cache that wraps cannot rewind: serve plain greedy
+                        # under the spec tag.
+                        fn = make_generate_fn(bundle, p, cache_len)
+                    servers.append(Server(fn, name=f"spec:{vname}#{r}",
+                                          capacity_tags=[f"spec:{vname}"]))
                 else:
                     servers.append(Server(
                         make_generate_fn(bundle, p, cache_len),
@@ -323,6 +633,9 @@ class ServingEngine:
                         capacity_tags=[f"gen:{vname}"],
                     ))
         self.lb = LoadBalancer(servers, policy=policy, exact_telemetry=exact_telemetry)
+
+    def _record_spec(self, tag: str, accepted: int, drafted: int) -> None:
+        self.lb.telemetry.record_spec(tag, accepted, drafted)
 
     # -- client API ----------------------------------------------------------
     def submit(self, variant: str, prompt, n_new: int, *, eos: Optional[int] = None) -> Generation:
@@ -381,20 +694,24 @@ def serving_metrics(gens: List[Generation], wall_s: float, summary: Optional[dic
         "per_token_p50_s": float(np.percentile(gaps, 50)) if gaps else float("nan"),
         "per_token_p99_s": float(np.percentile(gaps, 99)) if gaps else float("nan"),
     }
-    occ = (summary or {}).get("slot_occupancy", {})
-    if occ:
-        out["slot_occupancy"] = {name: round(row["mean"], 4) for name, row in occ.items()}
+    summary = summary or {}
+    for key in ("slot_occupancy", "block_occupancy"):
+        if summary.get(key):
+            out[key] = {name: round(row["mean"], 4) for name, row in summary[key].items()}
+    if summary.get("spec_accept"):
+        out["spec_accept"] = {
+            tag: {"rate": round(row["rate"], 4), "rounds": row["rounds"],
+                  "accepted": row["accepted"], "drafted": row["drafted"]}
+            for tag, row in summary["spec_accept"].items()
+        }
     return out
 
 
-# The reference's paged, speculative and sharded entry points, not ported yet.
-_REFERENCE_ONLY = (
-    "make_paged_decode_pool", "make_speculative_fn", "speculative_supported",
-    "shard_prefill_step", "shard_decode_step",
-)
+# The reference's sharded per-cell entry points, not ported yet.
+_REFERENCE_ONLY = ("shard_prefill_step", "shard_decode_step")
 
 
 def __getattr__(name: str):
     if name in _REFERENCE_ONLY:
-        raise NotImplementedError(f"serve_loop.{name}: {NOT_PORTED}")
+        raise NotImplementedError(f"serve_loop.{name}: {NOT_SHARDED}")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

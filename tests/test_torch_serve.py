@@ -8,6 +8,9 @@ cross-mode test demands of its modes (``tests/test_serve_continuous.py``).
 Token identity is an argmax of fp32 logits that agree to ~1e-6 between the
 frameworks; the reduced models' top-2 gaps are far above that.
 """
+import dataclasses
+import importlib
+
 import jax
 import numpy as np
 import pytest
@@ -69,11 +72,15 @@ def test_engine_inits_from_the_seed_and_shares_weights_across_modes():
 
 def test_engine_refuses_what_is_not_ported_and_what_cannot_fit():
     cfg = ARCHS["qwen2-0.5b"].reduced()
-    for kw in ({"mode": "paged"}, {"mode": "speculative"}, {"kv": "paged"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ServingEngine({"m": cfg}, device="cpu", **kw)
     with pytest.raises(ValueError, match="mode"):
         ServingEngine({"m": cfg}, mode="batch", device="cpu")
+    with pytest.raises(ValueError, match="kv"):
+        ServingEngine({"m": cfg}, kv="ring", device="cpu")
+    # A paged view never wraps, so a window shorter than the cache is refused.
+    windowed = dataclasses.replace(cfg, sliding_window=16)
+    for kw in ({"mode": "paged"}, {"kv": "paged"}):
+        with pytest.raises(ValueError, match="sliding_window"):
+            ServingEngine({"m": windowed}, cache_len=24, device="cpu", **kw)
     with ServingEngine({"m": cfg}, cache_len=8, device="cpu") as eng:
         with pytest.raises(PromptTooLongError):
             eng.submit("m", np.zeros((1, 6), np.int64), 4)
@@ -82,15 +89,11 @@ def test_engine_refuses_what_is_not_ported_and_what_cannot_fit():
 
 
 @pytest.mark.parametrize("module,name", [
-    ("repro_torch.runtime.serve_loop", "make_paged_decode_pool"),
-    ("repro_torch.runtime.serve_loop", "make_speculative_fn"),
     ("repro_torch.runtime.serve_loop", "shard_prefill_step"),
-    ("repro_torch.models.lm", "paged_decode_step"),
+    ("repro_torch.runtime.serve_loop", "shard_decode_step"),
     ("repro_torch.models.lm", "lm_loss"),
 ])
 def test_reference_only_entry_points_raise(module, name):
-    import importlib
-
     mod = importlib.import_module(module)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         getattr(mod, name)
@@ -98,15 +101,38 @@ def test_reference_only_entry_points_raise(module, name):
         getattr(mod, "no_such_function")
 
 
+@pytest.mark.parametrize("module,name", [
+    ("repro_torch.runtime.serve_loop", "make_paged_decode_pool"),
+    ("repro_torch.runtime.serve_loop", "make_speculative_fn"),
+    ("repro_torch.runtime.serve_loop", "speculative_supported"),
+    ("repro_torch.models.lm", "paged_decode_step"),
+    ("repro_torch.models.lm", "paged_prefill_chunk"),
+    ("repro_torch.models.lm", "paged_reset_slot"),
+    ("repro_torch.models.lm", "slot_evict"),
+])
+def test_ported_entry_points_resolve(module, name):
+    assert callable(getattr(importlib.import_module(module), name))
+
+
 def test_serve_cli_on_the_cpu(capsys):
     m = serve_main(["--device", "cpu", "--requests", "6", "--slots", "4", "--cache-len", "80"])
     out = capsys.readouterr().out
     assert "tok/s" in out and "slot occupancy" in out
     assert m["n_requests"] == 6 and m["n_tokens"] == sum(len(t) for t in m["tokens"])
+    capsys.readouterr()
+    paged = serve_main(["--device", "cpu", "--requests", "6", "--kv", "paged", "--slots", "4",
+                        "--cache-len", "80", "--block-size", "8", "--prefill-chunk", "2"])
+    out = capsys.readouterr().out
+    assert "[serve:paged:cpu]" in out and "block occupancy" in out
+    spec = serve_main(["--device", "cpu", "--requests", "6", "--mode", "speculative",
+                       "--cache-len", "80", "--spec-k", "3"])
+    assert "spec accept rate" in capsys.readouterr().out
     gen = serve_main(["--device", "cpu", "--requests", "6", "--mode", "generation",
                       "--cache-len", "80"])
-    for a, b in zip(m["tokens"], gen["tokens"]):
-        assert np.array_equal(a, b)
+    for other in (m, paged, spec):
+        assert len(other["tokens"]) == len(gen["tokens"]) == 6
+        for a, b in zip(other["tokens"], gen["tokens"]):
+            assert np.array_equal(a, b)
 
 
 def test_serve_cli_can_ask_for_the_full_width():
