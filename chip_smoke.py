@@ -74,6 +74,20 @@ Phases (any failure exits non-zero; there is no CPU path):
    MALA through separate value and gradient pools of TorchModels, their
    gradient and Jacobian against autograd on the CPU, and a gradient
    through the Matérn kernel refused;
+4d. sharded level pools and a chain restart through disk, on phase 4's
+   hierarchy and GP: (a) ``ShardedBatchServer`` pools at levels 0-2 over a
+   one-entry mesh and a two-entry mesh of this card (two shards, two graph
+   caches, two streams) against each level's ``BatchServer``, bit for bit
+   at B = 1, 3, 8, with the per-shard graph keys, and a B = 8 fine
+   evaluation timed three ways; (b) ``balanced_mlda`` through the
+   one-entry pools, 3 chains x 40 fine samples, clean and then with
+   ``checkpoint_dir``, ``max_restarts=1``, ``checkpoint_every=10`` and one
+   NaN fine result (the fine pool checks finiteness) after about 20 fine
+   evaluations a chain: one chain restarts once from its ``chain_<c>.npz``,
+   its samples up to that snapshot and the other chains equal the clean
+   run bit for bit; the snapshot writes, bytes on disk and the restore are
+   timed; counters at 0 before (a), and the fused-step and mean kernels
+   must launch, mostly from graph replays;
 5. the LM slice's prefill: qwen2-0.5b at full width in bf16 (seeded random
    weights) on one 32768-token prompt, the head on the last position only,
    counters at 0 just before; the
@@ -1651,6 +1665,208 @@ def phase_device_ensemble(torch, w, rows, res=None, smi: str = "") -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 4d: sharded level pools, and a chain restart through disk
+# ---------------------------------------------------------------------------
+SHARD_BATCHES = (1, 3, 8)  # (a): rows held bit for bit against BatchServer
+SHARD_TIMED_CALLS = 20  # (a): B = 8 fine evaluations a way, in turns
+RESTART_CHAINS = 3  # (b)
+RESTART_FINE_SAMPLES = 40
+RESTART_EVERY = 10  # checkpoint_every
+RESTART_FAULT_AFTER = 20  # fine evaluations a chain before the one NaN
+
+
+def sharded_pool_checks(torch, w, h, gp, smi: str):
+    """(a): ``ShardedBatchServer`` pools at levels 0-2 over the one-entry and
+    the two-entry mesh of this card against the level's ``BatchServer``,
+    bit for bit at B = 1, 3, 8, with the per-shard graph keys; then a B = 8
+    fine evaluation timed three ways.  Returns the one-entry pools."""
+    import numpy as np
+
+    from repro_torch.runtime.sharding import DataMesh, data_mesh, data_policy
+    from repro_torch.swe import local_level_servers
+
+    plain = local_level_servers(w, gp, h)
+    by_tag = {t: next(s for s in plain if t in s.capacity_tags)
+              for t in ("level0", "level1", "level2")}
+    thetas = list(np.random.default_rng(13).uniform(-200, 200, (8, 2)).astype(np.float32))
+    pools = {}
+    meshes = {"1-entry": data_mesh(1), "2-entry": DataMesh(["cuda:0", "cuda:0"])}
+    for label, mesh in meshes.items():
+        pools[label] = local_level_servers(w, gp, h, policy=data_policy(mesh))
+        n_pos = len(mesh.devices)
+        for pool in pools[label]:
+            (tag,) = pool.capacity_tags
+            for B in SHARD_BATCHES:
+                got, want = pool.batch_call(thetas[:B]), by_tag[tag].batch_call(thetas[:B])
+                n = sum(np.asarray(g).tobytes() != np.asarray(x).tobytes()
+                        for g, x in zip(got, want))
+                if n:
+                    fail(f"(a) {label} {pool.name} B={B}: {n} rows differ from BatchServer")
+            keys = sorted(pool.executables)
+            # B_pad rows split over the positions where they divide, else one
+            # unsharded call at position 0.
+            want_keys = sorted({(pos, b // (n_pos if b % n_pos == 0 else 1))
+                                for b in (1, 4, 8)
+                                for pos in range(n_pos if b % n_pos == 0 else 1)})
+            print(f"[4d] (a) {label} mesh {pool.name}: rows == {by_tag[tag].name}'s bit for "
+                  f"bit at B = {SHARD_BATCHES}; graph keys (mesh position, shard rows) {keys}")
+            if keys != want_keys:
+                fail(f"(a) {label} {pool.name}: graph keys {keys}, want {want_keys}")
+    fine = {"BatchServer": by_tag["level2"],
+            **{f"{label} mesh": next(s for s in ps if "level2" in s.capacity_tags)
+               for label, ps in pools.items()}}
+    th8 = thetas[:8]
+    walls = {k: [] for k in fine}
+    for s in fine.values():
+        s.batch_call(th8)
+    for _ in range(SHARD_TIMED_CALLS):
+        for k, s in fine.items():  # in turns: drift falls on every way alike
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s.batch_call(th8)
+            walls[k].append((time.perf_counter() - t0) * 1e3)
+    med = {k: float(np.median(v)) for k, v in walls.items()}
+    print(f"[4d] (a) B=8 fine evaluation, host clock, median of {SHARD_TIMED_CALLS} in turns "
+          f"({smi}): " + ", ".join(f"{k} {v:.3f} ms" for k, v in med.items())
+          + f"; 1-entry / BatchServer {med['1-entry mesh'] / med['BatchServer']:.3f}, "
+          f"2-entry / 1-entry {med['2-entry mesh'] / med['1-entry mesh']:.3f}")
+    return pools["1-entry"], med
+
+
+def _timed(calls: list, fn):
+    """``fn`` that appends ``(ms, result)`` of each call to ``calls``."""
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        calls.append(((time.perf_counter() - t0) * 1e3, out))
+        return out
+
+    return wrapper
+
+
+def restart_checks(torch, w, h, pools, smi: str):
+    """(b): ``balanced_mlda`` through the one-entry sharded pools, clean, then
+    with ``checkpoint_dir``, ``max_restarts=1`` and one NaN fine result on
+    the ``check_finite`` fine pool after about ``RESTART_FAULT_AFTER`` fine
+    evaluations a chain: the chain restarts from its ``chain_<c>.npz``."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    import repro_torch.checkpoint as ckpt
+    from repro_torch.core import GaussianRandomWalk, balanced_mlda
+
+    prob = h["problem"]
+    fine_pool = next(s for s in pools if "level2" in s.capacity_tags)
+    fine_pool.check_finite = True
+    run_fn = fine_pool.batch_fn
+    fault = {"members": 0, "hit": None}
+
+    def faulty(stacked):
+        out = run_fn(stacked)
+        fault["members"] += len(stacked)
+        if fault["hit"] is None and fault["members"] > RESTART_FAULT_AFTER * RESTART_CHAINS:
+            out = np.array(out, copy=True)
+            out[0] = np.nan
+            fault["hit"] = fault["members"]
+        return out
+
+    def sample(checkpoint_dir):
+        runner, lb = balanced_mlda(
+            pools, prob.log_likelihood, prob.log_prior, GaussianRandomWalk(w.rw_step_km),
+            list(w.subchain_lengths), batchable_levels=w.batchable_levels,
+            n_chains=RESTART_CHAINS, ensemble_seed=w.ensemble_seed, as_runner=True,
+            max_restarts=1, checkpoint_every=RESTART_EVERY, checkpoint_dir=checkpoint_dir,
+            **w.balancer_kwargs(),
+        )
+        try:
+            t0 = time.perf_counter()
+            out = runner.run(lambda c, rng: prob.sample_prior(rng)[0] * 0.5,
+                             RESTART_FINE_SAMPLES)
+            return out, time.perf_counter() - t0
+        finally:
+            lb.shutdown()
+
+    clean, clean_wall = sample(None)
+    saves, loads = [], []
+    save, restore = ckpt.save, ckpt.restore
+    ckpt.save, ckpt.restore = _timed(saves, save), _timed(loads, restore)
+    fine_pool.batch_fn = faulty
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            res, wall = sample(d)
+            files = sorted(os.listdir(d))
+            n_bytes = sum(os.path.getsize(os.path.join(d, f)) for f in files)
+    finally:
+        ckpt.save, ckpt.restore, fine_pool.batch_fn = save, restore, run_fn
+    writes = [ms for ms, _ in saves]
+    restores = [ms for ms, _ in loads]
+    read_steps = [out[1] for _, out in loads]
+    n = RESTART_CHAINS * RESTART_FINE_SAMPLES
+    print(f"[4d] (b) {RESTART_CHAINS} chains x {RESTART_FINE_SAMPLES} fine samples through the "
+          f"1-entry sharded pools ({smi}): clean {n / clean_wall:.2f} fine samples/s "
+          f"({clean_wall:.2f} s); with checkpoint_dir and one NaN after {fault['hit']} fine "
+          f"evaluations {n / wall:.2f} fine samples/s ({wall:.2f} s); restarts {res.restarts}, "
+          f"failures {res.failures}")
+    print(f"[4d] (b) snapshots: {len(writes)} writes, mean {np.mean(writes):.3f} ms, largest "
+          f"{max(writes):.3f} ms; {len(files)} files, {n_bytes} bytes on disk; restores "
+          f"{len(restores)} ({', '.join(f'{x:.3f}' for x in restores)} ms) of step "
+          f"{read_steps}")
+    if fault["hit"] is None or len(res.restarts) != 1 or res.failures:
+        fail(f"(b) restarts {res.restarts}, failures {res.failures}: want one chain "
+             "restarted once")
+    ((c, used),) = res.restarts.items()
+    if used != 1 or len(restores) != 1 or f"chain_{c}.npz" not in files:
+        fail(f"(b) chain {c}: {used} restarts, {len(restores)} restores from disk")
+    snap = read_steps[0]
+    chains = res.chains
+    if chains.shape != (RESTART_CHAINS, RESTART_FINE_SAMPLES, 2) or not np.isfinite(
+            chains).all():
+        fail(f"(b) chains {chains.shape} not finite")
+    if not np.array_equal(chains[c][:snap], clean.chains[c][:snap]):
+        fail(f"(b) chain {c}'s first {snap} samples differ from the clean run's")
+    for other in set(range(RESTART_CHAINS)) - {c}:
+        if not np.array_equal(chains[other], clean.chains[other]):
+            fail(f"(b) chain {other}, which did not fail, differs from the clean run")
+    print(f"[4d] (b) chain {c} resumed from its snapshot of {snap} samples: those equal the "
+          f"clean run's bit for bit, and the other chains equal it entirely")
+    return {"writes": len(writes), "write_ms_mean": float(np.mean(writes)),
+            "write_ms_max": max(writes), "bytes": n_bytes, "restore_ms": restores[0],
+            "clean_rate": n / clean_wall, "restart_rate": n / wall}
+
+
+def phase_sharded(torch, w, res, rows, smi: str = ""):
+    """Phase 4d on phase 4's hierarchy and GP: (a) the sharded pools against
+    ``BatchServer``, (b) a chain restart through disk, with the launch
+    counters set to 0 just before (a) and read after (b)."""
+    from repro_torch.kernels import build
+
+    t_phase = time.perf_counter()
+    h, gp = res["hierarchy"], res["gp"]
+    build.reset_counters()
+    pools, _med = sharded_pool_checks(torch, w, h, gp, smi)
+    restart_checks(torch, w, h, pools, smi)
+    torch.cuda.synchronize()
+    fused = build.counter("swe_fused_step")
+    mean = build.counter("matern52_mean")
+    replays = {name[len("graph_replays "):]: c.value for name, c in build.COUNTERS.items()
+               if name.startswith("graph_replays ") and "shard" in name and c.value}
+    print(f"[4d] launches: swe_fused_step {fused.value} ({fused.replayed} from graph replays), "
+          f"matern52_mean {mean.value} ({mean.replayed} from graph replays); sharded graph "
+          f"replays {replays}")
+    for name, c in (("swe_fused_step", fused), ("matern52_mean", mean)):
+        if not c.value or not c.replayed > c.value / 2:
+            fail(f"4d {name}: {c.value} launches, {c.replayed} from replays: not mostly "
+                 "from graph replays")
+    rows["swe_fused_step"]["launches_phase_4d"] = {
+        "sharded": fused.value, "from_replays": fused.replayed}
+    rows["matern52"]["launches_phase_4d"] = {
+        "sharded": mean.value, "from_replays": mean.replayed}
+    print(f"[4d] phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 # phases 5 and 6: the LM slice at full width
 # ---------------------------------------------------------------------------
 def _lm_config():
@@ -2226,6 +2442,8 @@ def main() -> None:
     ended("4b remote leg")
     phase_device_ensemble(torch, PAPER, rows, res, smi)
     ended("4c device ensemble")
+    phase_sharded(torch, PAPER, res, rows, smi)
+    ended("4d sharded pools and restart")
     del res
     phase_lm(torch, rows, ended)
     print(f"[7] all phases passed in {time.perf_counter() - t_start:.1f}s; seconds by phase "

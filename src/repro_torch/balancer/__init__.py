@@ -25,8 +25,8 @@ Layout (DESIGN.md §2-3):
   seeded :class:`FaultPlan` injection of crashes, stragglers, NaN
   payloads and connection drops for fault-tolerance tests/benchmarks.
 
-``repro_torch.core.balancer`` survives only as a deprecated one-line stub that
-re-exports this package with a :class:`DeprecationWarning`.
+The reference's deprecated re-export shim ``repro.core.balancer`` has no
+counterpart here: the port never had that import path.
 """
 from .dispatcher import LoadBalancer
 from .faults import FaultPlan, InjectedCrash, InjectedDrop, InjectedFault
@@ -64,6 +64,7 @@ from .types import (
     Server,
     ServerDiedError,
     ServerStats,
+    ShardedBatchServer,
 )
 
 __all__ = [
@@ -101,6 +102,7 @@ __all__ = [
     "Server",
     "ServerDiedError",
     "ServerStats",
+    "ShardedBatchServer",
     "Telemetry",
     "as_completed",
     "available_policies",

@@ -196,6 +196,138 @@ class BatchServer(Server):
         return results
 
 
+class ShardedBatchServer(BatchServer):
+    """A batch pool whose stacked call is split over the devices of a mesh.
+
+    Where :class:`BatchServer` replicas split a level's traffic across N
+    threads (the paper's N-server pools), this server is ONE pool whose
+    coalesced ``(B, ...)`` batch is partitioned over the data axes of a
+    :class:`~repro_torch.runtime.sharding.DataMesh`: the balancer schedules
+    across mesh shards instead of across processes.
+
+    ``stacked_fn`` is a factory, ``stacked_fn(device) -> forward``: a torch
+    forward closes over tensors on one device (bathymetry, probe indices,
+    the GP's weights), so each device gets its own, built once at its first
+    shard.  ``forward`` takes a ``(b, ...)`` tensor on that device and
+    returns a tensor (or a tuple of them) with the same leading axis.
+
+    Dispatch path: the batch is padded to a power of two by repeating row
+    0, so solver-stable inputs stay solver-stable; :meth:`~repro_torch.runtime.sharding.ShardingPolicy.batch_axes`
+    decides the partitioning of the *padded* size.  A divisible batch is
+    split into equal shards, one per mesh position; an indivisible one
+    (B_pad below the mesh size) runs unsharded at the mesh's first
+    position.  Each position runs its shard through a
+    :class:`~repro_torch.swe.solver.GraphBatchCache` of its own (a CUDA
+    graph replay on the card), on a CUDA stream of its own, under
+    ``torch.cuda.device`` of its device; every shard is launched before any
+    result is copied to the host, so shards on different streams overlap.
+    Caches and streams are keyed by mesh *position*: a mesh that lists one
+    device twice gets two shards, two graph caches and two streams on it.
+    Results are gathered, sliced back to ``B``, and run through the
+    inherited per-member ``check_finite`` scatter, so error semantics are
+    identical to ``BatchServer``.  A shard that fails to capture or launch
+    raises; nothing runs it eagerly or on the CPU instead.
+    """
+
+    def __init__(
+        self,
+        stacked_fn: Callable,
+        policy,  # repro_torch.runtime.sharding.ShardingPolicy over a DataMesh
+        *,
+        name: Optional[str] = None,
+        capacity_tags: Sequence[str] = (),
+        max_batch: Optional[int] = None,
+        check_finite: bool = False,
+        cache_key: Sequence = (),
+    ) -> None:
+        super().__init__(
+            self._run, name=name, capacity_tags=capacity_tags,
+            max_batch=max_batch, check_finite=check_finite,
+        )
+        self.stacked_fn = stacked_fn
+        self.policy = policy
+        self._cache_key = (*cache_key, "sharded", self.name)
+        self._forwards: dict = {}  # str(device) -> forward
+        self._caches: dict = {}  # mesh position -> GraphBatchCache
+        self._streams: dict = {}  # mesh position -> CUDA stream
+
+    def shards(self, n_pad: int) -> List[Tuple[int, int, int]]:
+        """``(mesh position, first row, end row)`` of each shard of a padded
+        batch of ``n_pad`` rows; one shard at position 0 when the policy
+        leaves the batch unsharded."""
+        if self.policy.batch_axes(n_pad) is None:
+            return [(0, 0, n_pad)]
+        n_shards = len(self.policy.mesh.devices)
+        rows = n_pad // n_shards
+        return [(i, i * rows, (i + 1) * rows) for i in range(n_shards)]
+
+    @property
+    def executables(self) -> dict:
+        """``(mesh position, shard rows)`` -> that shard size's graphs, one per
+        calling thread."""
+        return {(pos, *key[len(self._cache_key) + 1:]): per
+                for pos, cache in sorted(self._caches.items())
+                for key, per in cache.executables.items()}
+
+    def _place(self, pos: int):
+        """The context a shard at mesh position ``pos`` runs in: its device
+        and its stream (nothing on the CPU)."""
+        import contextlib
+
+        import torch
+
+        dev = self.policy.mesh.devices[pos]
+        stack = contextlib.ExitStack()
+        if dev.type == "cuda":
+            stack.enter_context(torch.cuda.device(dev))
+            stream = self._streams.get(pos)
+            if stream is None:
+                stream = self._streams[pos] = torch.cuda.Stream(dev)
+            stack.enter_context(torch.cuda.stream(stream))
+        return stack
+
+    def _cache(self, pos: int):
+        from repro_torch.swe.solver import GraphBatchCache  # call-time: no cycle
+
+        cache = self._caches.get(pos)
+        if cache is None:
+            dev = self.policy.mesh.devices[pos]
+            forward = self._forwards.get(str(dev))
+            if forward is None:
+                forward = self._forwards[str(dev)] = self.stacked_fn(dev)
+            cache = self._caches[pos] = GraphBatchCache(
+                forward, key=(*self._cache_key, pos), pad="repeat",
+                name=f"{self.name} shard {pos}",
+            )
+        return cache
+
+    def _run(self, stacked):
+        import torch
+        from torch.utils._pytree import tree_flatten, tree_unflatten
+
+        from repro_torch.swe.solver import pow2_batch  # call-time: no cycle
+
+        x = np.asarray(stacked)
+        n = x.shape[0]
+        n_pad = pow2_batch(n)
+        if n_pad != n:
+            x = np.concatenate([x, np.repeat(x[:1], n_pad - n, axis=0)])
+        host = torch.from_numpy(np.ascontiguousarray(x))
+        plan = self.shards(n_pad)
+        launched = []
+        for pos, lo, hi in plan:  # every shard launched before any copy back
+            with self._place(pos):
+                shard = host[lo:hi].to(self.policy.mesh.devices[pos])
+                launched.append(self._cache(pos)(shard)[0])
+        gathered, spec = [], None
+        for (pos, _lo, _hi), out in zip(plan, launched):
+            with self._place(pos):
+                leaves, spec = tree_flatten(out)
+                gathered.append([t.cpu().numpy() for t in leaves])
+        leaves = [np.concatenate(parts)[:n] for parts in zip(*gathered)]
+        return tree_unflatten(leaves, spec)
+
+
 class DecodeHandoff(NamedTuple):
     """Prefill -> decode handoff: what a decode slot needs to continue.
 

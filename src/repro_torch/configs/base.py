@@ -20,7 +20,7 @@ _REFERENCE_ATTN_IMPL = {"pallas": "kernel", "chunked": "chunked", "xla": "xla"}
 # training path, and the sharded per-cell entry points.
 NOT_PORTED = "not ported yet (ROADMAP Queue 1 item 8)"
 NOT_TRAINED = "not ported yet (ROADMAP Queue 1 item 9)"
-NOT_SHARDED = "not ported yet (ROADMAP Queue 1 items 5 and 10)"
+NOT_SHARDED = "not ported yet (ROADMAP Queue 1 item 10)"
 
 
 @dataclass(frozen=True)

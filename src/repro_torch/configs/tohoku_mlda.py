@@ -58,9 +58,10 @@ class MLDAWorkloadConfig:
     # device-resident ensemble (DESIGN.md §9): advance all chains' coarse
     # subchains as ONE fused vmapped device kernel, surfacing to the
     # balancer only for fine-level solves; device_chunk is the fused
-    # steps-per-host-sync in the fully-fused mode.  mesh_devices caps the
-    # 1-D ("data",) mesh used for shard_map'd batch pools (None = all
-    # local devices; sharded pools need batch_solves).
+    # steps-per-host-sync in the fully-fused mode.  mesh_devices, when set,
+    # makes each level ONE ShardedBatchServer over a 1-D ("data",) mesh of
+    # that many devices (swe.make_level_servers; None = the per-level
+    # BatchServer replicas; sharded pools need batch_solves).
     device_resident: bool = False
     device_chunk: int = 16
     mesh_devices: Optional[int] = None

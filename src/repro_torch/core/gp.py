@@ -13,6 +13,7 @@ their plain versions on the CPU.
 """
 from __future__ import annotations
 
+import copy
 import math
 from dataclasses import dataclass, field
 from typing import Dict, NamedTuple
@@ -107,6 +108,23 @@ class GaussianProcess:
     @property
     def device(self) -> torch.device:
         return self.x_train.device
+
+    def to(self, device: DeviceLike) -> "GaussianProcess":
+        """This GP on ``device`` (itself if it is there already).  The copy's
+        prediction constants are copies of this GP's, not recomputed there,
+        so both compute the same bits: a sharded level-0 pool's rows do not
+        depend on the device that ran them."""
+        dev = resolve_device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        if dev == self.device:
+            return self
+        gp = copy.copy(self)
+        for name in ("x_train", "y_train", "y_mean", "y_scale", "chol", "alpha",
+                     "_ls", "_x_scaled"):
+            setattr(gp, name, getattr(self, name).to(dev))
+        gp.params = GPParams(*(p.to(dev) for p in self.params))
+        return gp
 
     def predict(self, x: torch.Tensor, return_var: bool = False):
         """Posterior mean (and variance) at x: (m, d) -> (m, p)."""

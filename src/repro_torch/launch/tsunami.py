@@ -93,13 +93,23 @@ def run(
     device: str = "cuda",
     remote: Sequence[str] = (),
     remote_binary: bool = True,
+    checkpoint_dir: Optional[str] = None,
     log: Callable[[str], None] = print,
 ) -> Dict[str, Any]:
     """Run stages 1-4 and the series GP for workload ``w``; return what the
     report prints.  ``remote`` names ``host:port`` endpoints of
     ``launch.export`` processes to evaluate on (binary framing, or
     UM-Bridge JSON without ``remote_binary``) instead of in-process pools;
-    then ``gp`` is None."""
+    then ``gp`` is None.  ``w.mesh_devices`` makes each in-process level
+    one sharded pool over that many cards; ``checkpoint_dir`` writes each
+    chain's snapshots there (``chain_<c>.npz``, every ``w.checkpoint_every``
+    fine samples) and needs ``w.max_restarts`` > 0: without a restart a
+    snapshot is never read."""
+    if checkpoint_dir is not None and w.max_restarts <= 0:
+        raise ValueError(
+            f"checkpoint_dir needs a workload with max_restarts > 0 "
+            f"({w.name} has {w.max_restarts})"
+        )
     dev = resolve_device(device)
     n_chains = n_chains or w.n_chains
     policy = policy or w.balancer_policy
@@ -154,6 +164,7 @@ def run(
             ensemble_seed=w.ensemble_seed,
             speculative=w.speculative_prefetch,
             as_runner=True,
+            checkpoint_dir=checkpoint_dir,
             **w.balancer_kwargs(),
             **w.runner_kwargs(),
         )

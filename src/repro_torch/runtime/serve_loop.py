@@ -19,9 +19,9 @@ step and its argmax; a prompt replays the B = 1 graph once a position), a
 :class:`PagedGraphs` (the paged step, and one chunked-prefill graph per
 chunk length), and the speculative verify graphs (k + 1 decode steps each).
 
-Not ported yet (ROADMAP Queue 1 items 5 and 10): the sharded per-cell entry
+Not ported yet (ROADMAP Queue 1 item 10): the sharded per-cell entry
 points (``shard_prefill_step`` / ``shard_decode_step``), which wait with the
-sharding layer.
+tensor-parallel layout of the sharding layer.
 """
 from __future__ import annotations
 

@@ -13,6 +13,7 @@ from .servers import (
     local_level_servers,
     make_level_servers,
     make_remote_level_servers,
+    stacked_factory,
 )
 from .solver import SWEConfig, SWEState, lake_at_rest_error, make_solver, step
 
@@ -31,6 +32,7 @@ __all__ = [
     "make_remote_level_servers",
     "make_solver",
     "observe",
+    "stacked_factory",
     "step",
     "train_level0_gp",
 ]

@@ -169,14 +169,10 @@ class TohokuScenario:
 
         return self._single(eager, "single forward", n_steps, dt)
 
-    def _batched(self, readout: Callable, name: str) -> Callable:
+    def _stacked(self, readout: Callable) -> Callable:
         """thetas (B, 2) -> ``readout(series, dt, t_norm)`` of ONE batched
-        solve, under one :class:`GraphBatchCache` keyed ``(ny, nx)`` that
-        pads by repeating member 0 (a valid theta): on the card a call is
-        one copy in, one graph replay and one copy out, and the solve
-        inside the graph is the uncached stacked solve.  ``forward.eager``
-        is the same forward, unpadded, with every launch issued from
-        Python; ``forward.executables`` holds the graphs."""
+        solve, with no padding and no graph: every launch issued from
+        Python.  The thetas go to this scenario's device as float32."""
         solver = make_solver(
             self.cfg, self.bathymetry(), self.probe_indices(), batch=True
         )
@@ -184,12 +180,26 @@ class TohokuScenario:
         t_norm = n_steps * dt
         X, Y = self._grid()
 
-        def stacked(thetas: torch.Tensor) -> torch.Tensor:
+        def stacked(thetas) -> torch.Tensor:
             # One bump per member: the same shapes as the single forward.
+            thetas = torch.atleast_2d(self._theta(thetas))
             eta0 = torch.stack([self._bump(X, Y, t) for t in thetas])
             series, _ = solve(eta0)  # (B, n_steps, n_probes)
             return readout(series, dt, t_norm)
 
+        stacked.n_steps = n_steps
+        stacked.dt = dt
+        stacked.device = self.torch_device
+        return stacked
+
+    def _batched(self, readout: Callable, name: str) -> Callable:
+        """:meth:`_stacked` under one :class:`GraphBatchCache` keyed ``(ny,
+        nx)`` that pads by repeating member 0 (a valid theta): on the card
+        a call is one copy in, one graph replay and one copy out, and the
+        solve inside the graph is the uncached stacked solve.
+        ``forward.eager`` is the uncached forward itself, unpadded;
+        ``forward.executables`` holds the graphs."""
+        stacked = self._stacked(readout)
         cache = GraphBatchCache(
             stacked, key=(self.ny, self.nx), pad="repeat",
             name=f"{name} {self.ny}x{self.nx}",
@@ -199,12 +209,18 @@ class TohokuScenario:
             out, n = cache(torch.atleast_2d(self._theta(thetas)))
             return out[:n]
 
-        forward.n_steps = n_steps
-        forward.dt = dt
+        forward.n_steps = stacked.n_steps
+        forward.dt = stacked.dt
         forward.device = self.torch_device
-        forward.eager = lambda thetas: stacked(torch.atleast_2d(self._theta(thetas)))
+        forward.eager = stacked
         forward.executables = cache.executables
         return forward
+
+    @staticmethod
+    def _observables(thr: float) -> Callable:
+        return lambda series, dt, t_norm: torch.stack(
+            [observe(s, dt, t_norm, thr) for s in series]
+        )
 
     def build_batch_forward(self) -> Callable:
         """thetas (B, 2) -> observables (B, 4) in ONE batched solve.
@@ -216,13 +232,17 @@ class TohokuScenario:
         ``build_forward()(thetas[i])`` bit for bit.  Graphs as
         :meth:`_batched` says.
         """
-        thr = self.arrival_threshold
-        return self._batched(
-            lambda series, dt, t_norm: torch.stack(
-                [observe(s, dt, t_norm, thr) for s in series]
-            ),
-            "forward",
-        )
+        return self._batched(self._observables(self.arrival_threshold), "forward")
+
+    def build_stacked_forward(self) -> Callable:
+        """thetas ``(B, 2)`` -> observables ``(B, 4)``: the batched forward
+        with NO graph cache and no padding, for a
+        :class:`repro_torch.balancer.types.ShardedBatchServer`, which pads,
+        splits and caches graphs per mesh position itself.  Its rows are
+        :meth:`build_batch_forward`'s bit for bit.  For another device,
+        build it on ``dataclasses.replace(scenario, device=str(d))``
+        (:func:`repro_torch.swe.servers.stacked_factory`)."""
+        return self._stacked(self._observables(self.arrival_threshold))
 
     def build_series_forward(self) -> Callable:
         """theta -> full probe-0 SSHA time series (n_steps,), through the
@@ -346,6 +366,10 @@ def make_hierarchy(
         # Stacked (B, 2) -> (B, 4) handlers for the BatchServer pools.
         "forward_fine_batch": fine.build_batch_forward(),
         "forward_coarse_batch": coarse.build_batch_forward(),
+        # The scenarios themselves: the series GP's coarse solves, and the
+        # per-device forwards of sharded pools (swe.servers.stacked_factory).
+        "coarse": coarse,
+        "fine": fine,
     }
 
 
@@ -380,17 +404,15 @@ def device_densities(
 
 def build_hierarchy(w, device) -> Dict[str, object]:
     """:func:`make_hierarchy` over workload ``w``'s coarse and fine
-    scenarios on ``device`` (a ``MLDAWorkloadConfig``'s grids and end time);
-    the coarse scenario is kept as ``h["coarse"]`` for the series GP."""
+    scenarios on ``device`` (a ``MLDAWorkloadConfig``'s grids and end
+    time)."""
     fine = TohokuScenario(
         nx=w.fine_grid[0], ny=w.fine_grid[1], t_end=w.t_end_s, device=str(device)
     )
     coarse = TohokuScenario(
         nx=w.coarse_grid[0], ny=w.coarse_grid[1], t_end=w.t_end_s, device=str(device)
     )
-    h = make_hierarchy(fine=fine, coarse=coarse)
-    h["coarse"] = coarse
-    return h
+    return make_hierarchy(fine=fine, coarse=coarse)
 
 
 def train_level0_gp(

@@ -12,15 +12,25 @@ result comes back to the host on the worker thread, so a server's busy
 interval covers the real device work.  On the card each server issues its
 work on a CUDA stream of its own: on one shared stream a GP evaluation's
 copy to the host would wait behind every fine-level step queued before it.
+
+With a :class:`repro_torch.runtime.sharding.ShardingPolicy` (``policy=``,
+or ``MLDAWorkloadConfig.mesh_devices`` alone) a level whose per-device
+stacked forward is available (``stacked_forwards=``: factories
+``device -> forward``, :func:`stacked_factory` of a scenario) becomes ONE
+:class:`repro_torch.balancer.types.ShardedBatchServer` pool instead of
+``servers_per_level`` thread replicas: the coalesced batch is split over
+the devices of the mesh, so the balancer schedules across mesh shards,
+not threads (DESIGN.md §9).
 """
 from __future__ import annotations
 
+from dataclasses import replace
 from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from repro_torch.balancer import BatchServer, Server
+from repro_torch.balancer import BatchServer, Server, ShardedBatchServer
 
 
 def _on_host(fn: Callable, device: torch.device) -> Callable:
@@ -36,6 +46,13 @@ def _on_host(fn: Callable, device: torch.device) -> Callable:
     return call
 
 
+def stacked_factory(scenario) -> Callable:
+    """``device -> forward``: ``scenario``'s stacked forward
+    (:meth:`~repro_torch.swe.scenario.TohokuScenario.build_stacked_forward`)
+    built on ``device``, the per-device factory of a sharded pool."""
+    return lambda device: replace(scenario, device=str(device)).build_stacked_forward()
+
+
 def make_level_servers(
     w,
     gp,
@@ -43,6 +60,8 @@ def make_level_servers(
     f_fine: Callable,
     *,
     batch_forwards: Optional[Sequence[Optional[Callable]]] = None,
+    stacked_forwards: Optional[Sequence[Optional[Callable]]] = None,
+    policy=None,
 ) -> List[Server]:
     """One GP server + the config's per-level coarse/fine SWE servers.
 
@@ -52,17 +71,47 @@ def make_level_servers(
     ``(level0, level1, level2)`` stacked handlers (``None`` entries fall
     back); the GP's own ``batch_call`` fills level 0 when none is given.
     Every forward carries its ``device`` (the scenario's, or the GP's).
+
+    When ``policy`` (a :class:`~repro_torch.runtime.sharding.ShardingPolicy`
+    over a :class:`~repro_torch.runtime.sharding.DataMesh`) is also given,
+    or ``w.mesh_devices`` derives one (``data_policy(data_mesh(n))``),
+    levels with a per-device stacked forward (``stacked_forwards``:
+    factories ``device -> forward``; the GP's copy on each device fills
+    level 0) become a single :class:`ShardedBatchServer` pool each, named
+    ``gp-0`` / ``coarse-pool`` / ``fine-pool``; ``servers_per_level``
+    replica counts are ignored for those levels, since the mesh shards
+    replace the thread replicas.
     """
     batching = bool(getattr(w, "batch_solves", False))
     max_batch = int(getattr(w, "max_batch", 8)) or None
+    if policy is None and batching and getattr(w, "mesh_devices", None):
+        # The config asked for a device mesh without the caller building a
+        # policy: derive it here, on the GP's device type, so setting the
+        # knob alone shards the pools.
+        from repro_torch.runtime.sharding import data_mesh, data_policy
+
+        policy = data_policy(data_mesh(w.mesh_devices, device=gp.device.type))
     bf = list(batch_forwards or (None, None, None))
     while len(bf) < 3:
         bf.append(None)
     if batching and bf[0] is None:
         bf[0] = gp.batch_call
+    sf = list(stacked_forwards or (None, None, None))
+    while len(sf) < 3:
+        sf.append(None)
+    if policy is not None and sf[0] is None and hasattr(gp, "to"):
+        sf[0] = lambda device: gp.to(device).batch_call
     devices = (gp.device, f_coarse.device, f_fine.device)
 
+    def sharded(level: int) -> bool:
+        return batching and policy is not None and sf[level] is not None
+
     def server(level: int, single: Callable, name: str, tag: str) -> Server:
+        if sharded(level):
+            return ShardedBatchServer(
+                sf[level], policy, name=name, capacity_tags=(tag,),
+                max_batch=max_batch, cache_key=("pool", tag),
+            )
         if batching and bf[level] is not None:
             return BatchServer(
                 _on_host(bf[level], devices[level]), name=name,
@@ -71,22 +120,30 @@ def make_level_servers(
         return Server(_on_host(single, devices[level]), name=name, capacity_tags=(tag,))
 
     servers = [server(0, gp, "gp-0", "level0")]
-    for i in range(max(w.servers_per_level.get(1, 1), 1)):
-        servers.append(server(1, f_coarse, f"coarse-{i}", "level1"))
-    for i in range(max(w.servers_per_level.get(2, 1), 1)):
-        servers.append(server(2, f_fine, f"fine-{i}", "level2"))
+    for level, f, pool, replica in ((1, f_coarse, "coarse-pool", "coarse"),
+                                    (2, f_fine, "fine-pool", "fine")):
+        if sharded(level):
+            servers.append(server(level, f, pool, f"level{level}"))
+            continue
+        for i in range(max(w.servers_per_level.get(level, 1), 1)):
+            servers.append(server(level, f, f"{replica}-{i}", f"level{level}"))
     return servers
 
 
-def local_level_servers(w, gp, h) -> List[Server]:
+def local_level_servers(w, gp, h, *, policy=None) -> List[Server]:
     """:func:`make_level_servers` over the GP and a :func:`build_hierarchy`
     ``h``: the in-process level pools (batched forwards with
-    ``w.batch_solves``)."""
+    ``w.batch_solves``; one sharded pool a level, over the scenarios'
+    per-device forwards, with a ``policy`` or ``w.mesh_devices``)."""
     return make_level_servers(
         w, gp, h["forward_coarse"], h["forward_fine"],
         batch_forwards=(
             None, h["forward_coarse_batch"], h["forward_fine_batch"]
         ) if w.batch_solves else None,
+        stacked_forwards=(
+            None, stacked_factory(h["coarse"]), stacked_factory(h["fine"])
+        ) if w.batch_solves else None,
+        policy=policy,
     )
 
 

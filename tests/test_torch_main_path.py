@@ -149,11 +149,34 @@ def test_device_defaults_to_card_and_never_falls_back():
         resolve_device("meta")
 
 
-def test_later_slices_raise_not_implemented():
-    """The on-disk checkpoints of the ensemble driver wait for the port of
-    the checkpoint module (ROADMAP Queue 1 item 9)."""
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        EnsembleRunner(lambda c: None, 1, checkpoint_dir="anywhere")
+def test_later_slices_raise_not_implemented(tmp_path):
+    """What is still unported raises and names its ROADMAP item: the other
+    LM families (item 8), the training loss (item 9), the tensor-parallel
+    layout and the sharded serving steps (item 10).  The ensemble runner's
+    on-disk checkpoints, which raised here before the checkpoint module
+    was ported, now take effect."""
+    from repro_torch.configs.base import ArchConfig
+    from repro_torch.models import lm
+    from repro_torch.runtime import serve_loop, sharding
+
+    with pytest.raises(NotImplementedError, match="item 8"):
+        ArchConfig(arch_id="m", family="moe", n_layers=1, d_model=8, n_heads=1,
+                   n_kv_heads=1, d_ff=8, vocab=8)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        lm.lm_loss
+    for unported in (lambda: serve_loop.shard_decode_step,
+                     lambda: serve_loop.shard_prefill_step,
+                     lambda: sharding.param_spec(None, [], None)):
+        with pytest.raises(NotImplementedError, match="item 10"):
+            unported()
+    from repro_torch.core import MLDASampler
+
+    flat = lambda t: 0.0  # noqa: E731
+    runner = EnsembleRunner(
+        lambda c: MLDASampler([flat, flat], GaussianRandomWalk(1.0), [1]), 1,
+        checkpoint_dir=str(tmp_path))
+    assert runner.run(np.zeros(2), 3).chains.shape == (1, 3, 2)
+    assert (tmp_path / "chain_0.npz").exists()
 
 
 def test_device_resident_validates_before_building_a_balancer(tiny_hierarchy):
