@@ -125,6 +125,30 @@ Phases (any failure exits non-zero; there is no CPU path):
    reference's gates, the chunk graphs' captures and graph memory, and a
    paged step eager against replay and under the profiler, printed and not
    gated;
+6c. the MoE, SSM and hybrid families at full width in bf16 (seeded random
+   weights drawn on the card), granite-moe-3b-a800m, mamba2-1.3b and
+   zamba2-1.2b one after another, each freed before the next: (a) the
+   parameter count within the reference's bounds; (b) granite's and
+   zamba2's prefill_32k prompt at batch 1, the main path's launch of the
+   flash kernel, against plain blocked attention as phase 5 (counters at 0
+   just before each: the tensor-core kernel launches 32 and 6 times, the
+   fp32 route never); (c) mamba2's chunked prefill against the recurrence
+   on 8 prompts of 256 tokens (argmaxes by the top-2 rule, delta the
+   chunk-128 vs chunk-64 difference), and both in fp32 on a two-block cut
+   within 1e-3; (d) mamba2's prefill_32k prompt: no flash launch; (e)
+   every serving mode the family has on phase 6's kind of work (zamba2's
+   paged mode must be refused): speculative (plain greedy for mamba2 and
+   zamba2) equals generation exactly, continuous and paged follow
+   generation by the top-2 rule, the median top-2 gap printed beside 2
+   delta (granite's paged tokens at its capacity factor are counted, not
+   held: its 16-position chunks drop pairs that token-by-token generation
+   keeps; its paged mode is served again at a factor where none drops, and
+   held); the same rule again in fp32 on a depth cut of each family, where
+   it has teeth (2 delta must lie below the median top-2 gap); the B = 1
+   and B = 8 graphs equal the eager steps bit for bit (logits, and the
+   recurrent state after), a ``PagedGraphs`` equals the eager paged
+   functions bit for bit (granite's at both capacity factors), and decode
+   steps at B = 1 and 8 are timed eager against replay;
 7. print the ``kernels`` JSON line, then the result line.
 """
 from __future__ import annotations
@@ -1881,25 +1905,32 @@ def _prefill_len() -> int:
     return SHAPES["prefill_32k"].seq_len
 
 
-def phase_lm_prefill(torch, cfg, params, rows):
+def attention_calls(cfg) -> int:
+    """Flash-attention calls of one prefill: a layer each (dense, MoE), an
+    invocation of the shared block each (hybrid), none (SSM)."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.shared_attn_every:
+        return cfg.n_layers // cfg.shared_attn_every
+    return cfg.n_layers
+
+
+def three_prefills(torch, cfg, params, tokens, phase: str):
+    """The kernel path, then the plain blocked attention with 512-key blocks
+    (the default) and, as the control, with 64-key blocks: two sound
+    computations that differ only in where p is rounded, as the kernel's
+    64-key tiles differ from the 512-key blocks.  Each with the counters at
+    0 just before; the kernel path must launch the tensor-core flash kernel
+    once an attention call, the others never, the fp32 route never.  ->
+    ({label: last-position logits (B, V)}, tensor-core launches of the
+    kernel path)."""
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.models import build_model
     from repro_torch.models import chunked_attention
 
-    s = _prefill_len()
-    gen = torch.Generator().manual_seed(5)
-    tokens = torch.randint(0, cfg.vocab, (1, s), generator=gen).cuda()
-    print(f"[5] prefill: {cfg.arch_id} full width ({cfg.n_layers} layers, d_model "
-          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, vocab {cfg.vocab}), "
-          f"{cfg.compute_dtype}, seeded random weights; one {s}-token prompt (prefill_32k with its "
-          "global batch cut from 32 to 1)")
-    # The kernel path, then the plain blocked attention with 512-key blocks
-    # (the default) and, as the control, with 64-key blocks: two sound
-    # computations that differ only in where p is rounded, as the kernel's
-    # 64-key tiles differ from the 512-key blocks.
     plain = chunked_attention.attention_chunked
-    out = {}
+    out, kernel_launches = {}, 0
     for impl, block_k in (("kernel", None), ("chunked", 512), ("chunked", 64)):
         label = impl if block_k is None else f"{impl}/{block_k}"
         if block_k:
@@ -1916,34 +1947,47 @@ def phase_lm_prefill(torch, cfg, params, rows):
         launches = fa.LAUNCHES["tensor_core"].value
         fp32_launches = fa.LAUNCHES["cuda_core"].value
         peak = torch.cuda.max_memory_allocated() / 2**30
-        print(f"[5] prefill attn_impl={label}: {wall:.3f} s wall, peak memory {peak:.2f} GiB, "
+        print(f"[{phase}] prefill attn_impl={label}: {wall:.3f} s wall, peak memory {peak:.2f} GiB, "
               f"flash_attention launches: tensor-core route {launches}, fp32 route "
               f"{fp32_launches}")
         if fp32_launches:
             fail(f"the bf16 prefill launched the fp32 flash kernel {fp32_launches} times")
         if impl == "kernel":
-            if launches != cfg.n_layers:
+            if launches != attention_calls(cfg):
                 fail(f"prefill launched the tensor-core flash kernel {launches} times, "
-                     f"want {cfg.n_layers}")
-            rows["flash_attention"]["launches"] = launches
+                     f"want {attention_calls(cfg)}")
+            kernel_launches = launches
         elif launches != 0:
             fail(f"the chunked prefill launched flash_attention {launches} times")
-        if logits.shape != (1, 1, cfg.vocab) or not bool(torch.isfinite(logits).all()):
-            fail(f"prefill ({label}) logits {tuple(logits.shape)} are not finite (1, 1, V)")
-        out[label] = logits[0, -1]
+        b = tokens.shape[0]
+        if logits.shape != (b, 1, cfg.vocab) or not bool(torch.isfinite(logits).all()):
+            fail(f"prefill ({label}) logits {tuple(logits.shape)} are not finite ({b}, 1, V)")
+        out[label] = logits[:, -1]
 
     def diff(a, b):
         return float((out[a] - out[b]).abs().max())
 
     d_kernel, d_ctrl = diff("kernel", "chunked/512"), diff("chunked/64", "chunked/512")
-    print(f"[5] last-position logits (range {float(out['kernel'].min()):.3f}.."
+    print(f"[{phase}] last-position logits (range {float(out['kernel'].min()):.3f}.."
           f"{float(out['kernel'].max()):.3f}), max abs diff: kernel vs chunked/512 "
           f"{d_kernel:.4e}, control chunked/64 vs chunked/512 {d_ctrl:.4e}, kernel vs "
           f"chunked/64 {diff('kernel', 'chunked/64'):.4e}; argmax "
-          + " / ".join(f"{k} {int(x.argmax())}" for k, x in out.items()))
+          + " / ".join(f"{k} {x.argmax(-1).tolist()}" for k, x in out.items()))
     if not d_kernel <= PREFILL_DIFF_FACTOR * d_ctrl:
         fail(f"kernel-path logits differ from the plain path's by {d_kernel}, more than "
              f"{PREFILL_DIFF_FACTOR}x the control's {d_ctrl}")
+    return out, kernel_launches
+
+
+def phase_lm_prefill(torch, cfg, params, rows):
+    s = _prefill_len()
+    gen = torch.Generator().manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab, (1, s), generator=gen).cuda()
+    print(f"[5] prefill: {cfg.arch_id} full width ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, vocab {cfg.vocab}), "
+          f"{cfg.compute_dtype}, seeded random weights; one {s}-token prompt (prefill_32k with its "
+          "global batch cut from 32 to 1)")
+    _, rows["flash_attention"]["launches"] = three_prefills(torch, cfg, params, tokens, "5")
 
 
 def serve_work(torch, cfg, params, mode, work, phase, **engine_kw):
@@ -2193,21 +2237,35 @@ def phase_lm_serving(torch, cfg, params):
 
 def _clone_paged(state):
     from repro_torch.models.attention import PagedKVCache
-    from repro_torch.models.lm import PagedDecodeState
 
-    return PagedDecodeState(kv=PagedKVCache(state.kv.k.clone(), state.kv.v.clone()),
-                            tables=state.tables.clone(), pos=state.pos.clone())
+    def clone(t):
+        return None if t is None else t.clone()
+
+    kv = None if state.kv is None else PagedKVCache(state.kv.k.clone(), state.kv.v.clone())
+    return state._replace(kv=kv, tables=clone(state.tables), pos=state.pos.clone(),
+                          ssm_h=clone(state.ssm_h), ssm_conv=clone(state.ssm_conv))
 
 
-def paged_graph_checks(torch, cfg, params, served):
+def _paged_written(state):
+    """What a paged step or chunk writes in place: the block pool past the
+    scratch row 0 (which every inactive slot writes, duplicate indices with
+    no fixed winner), or the slots' recurrent state."""
+    if state.kv is not None:
+        return [state.kv.k[:, 1:], state.kv.v[:, 1:]]
+    return [state.ssm_h, state.ssm_conv]
+
+
+def paged_graph_checks(torch, cfg, params, served, phase: str = "6b"):
     """6b (b): a ``PagedGraphs`` of the pool's shapes against the eager
     functions on a copy of its state, bit for bit: chunk graphs over eight
     slots' prompts, steps with every slot and with some slots active, then
     the same after one slot was moved onto other block rows after the
-    captures.  Also the eager chunked prefill's first-token logits against
-    the serving prefill's (phase 6), held as the kernel prefill is.
-    Returns the graphs, each slot's next feed token and the all-active
-    mask."""
+    captures (for an SSM pool, which has no blocks, the slot is re-leased).
+    Also the eager chunked prefill's first-token logits against the serving
+    prefill's (phase 6), held as the kernel prefill is, unless
+    ``served["first_logits"]`` is None (an MoE whose chunks drop pairs that
+    the serving prefill keeps).  Returns the graphs, each slot's next feed
+    token and the all-active mask."""
     from repro_torch.models import build_model
     from repro_torch.models.lm import paged_decode_step, paged_prefill_chunk, paged_reset_slot
     from repro_torch.runtime.serve_loop import PagedGraphs
@@ -2243,10 +2301,10 @@ def paged_graph_checks(torch, cfg, params, served):
             if new:
                 mem[f"chunk C={len(piece)}"] = torch.cuda.memory_reserved() - before
             for a, b in ((ids, want[1]), (logits, want[2]), (g.state.pos, want[0].pos),
-                         (g.state.kv.k[:, 1:], ref.kv.k[:, 1:]),
-                         (g.state.kv.v[:, 1:], ref.kv.v[:, 1:])):
+                         *zip(_paged_written(g.state), _paged_written(ref))):
                 same(a, b)
-        d_chunk = max(d_chunk, float((want[2][0, -1] - first_logits[i]).abs().max()))
+        if first_logits is not None:
+            d_chunk = max(d_chunk, float((want[2][0, -1] - first_logits[i]).abs().max()))
         return int(ids[0])
 
     def stepped(feeds, active):
@@ -2256,8 +2314,7 @@ def paged_graph_checks(torch, cfg, params, served):
         want = paged_decode_step(params, cfg, ref, feeds_t, active_t, SERVE_CACHE_LEN)
         ids, logits = g.step(feeds_t, active_t)
         for a, b in ((ids, want[1]), (logits, want[2]), (g.state.pos, want[0].pos),
-                     (g.state.kv.k[:, 1:], ref.kv.k[:, 1:]),
-                     (g.state.kv.v[:, 1:], ref.kv.v[:, 1:])):
+                     *zip(_paged_written(g.state), _paged_written(ref))):
             same(a, b)
         return [int(x) if on else f for x, f, on in zip(ids.tolist(), feeds, active)]
 
@@ -2275,14 +2332,18 @@ def paged_graph_checks(torch, cfg, params, served):
     feeds[3] = chunked(3, SERVE_SLOTS)
     for active in (every, some):
         feeds = stepped(feeds, active)
-    print(f"[6b] paged graphs vs eager (ids, logits, positions, block pool; bit for bit): "
+    moe = "" if cfg.moe is None else f" at capacity factor {cfg.moe.capacity_factor}"
+    print(f"[{phase}] {cfg.arch_id}{moe}: paged graphs vs eager (ids, logits, positions, block "
+          "pool or recurrent state; bit for bit): "
           f"{unequal_} of {checks} comparisons unequal ({n_before} before slot 3 moved onto "
           f"rows 50/41/63/36, {checks - n_before} after); chunk graphs {sorted(g.chunks)}; "
           "graph memory reserved " + ", ".join(f"{k} {v / 2**20:.1f} MiB" for k, v in mem.items()))
     if unequal_:
         fail(f"paged graphs differ from the eager functions in {unequal_} of {checks} comparisons")
+    if first_logits is None:
+        return g, feeds, every
     bound = PREFILL_DIFF_FACTOR * served["delta_first"]
-    print(f"[6b] chunked prefill (eager, {PAGED_CHUNK}-position chunks) vs the serving prefill, "
+    print(f"[{phase}] chunked prefill (eager, {PAGED_CHUNK}-position chunks) vs the serving prefill, "
           f"first-token logits of {SERVE_SLOTS + 1} requests: max abs diff {d_chunk:.4e} "
           f"(bound {PREFILL_DIFF_FACTOR} delta_first = {bound:.4e})")
     if not d_chunk <= bound:
@@ -2382,6 +2443,458 @@ def phase_lm_paged(torch, cfg, params, served):
                       f"{r['rounds']} rounds)" for t, r in spec.items()))
 
 
+# ---------------------------------------------------------------------------
+# phase 6c: the MoE, SSM and hybrid families at full width
+# ---------------------------------------------------------------------------
+FAMILY_ARCHS = ("granite-moe-3b-a800m", "mamba2-1.3b", "zamba2-1.2b")
+# The reference's own bounds for their parameter counts
+# (tests/test_models_smoke.py).
+FAMILY_PARAM_BOUNDS = {"granite-moe-3b-a800m": (2.5e9, 4.0e9), "mamba2-1.3b": (1.0e9, 1.7e9),
+                       "zamba2-1.2b": (1.0e9, 1.6e9)}
+SSM_CHECK_LEN = 256  # (c): mamba2's chunked prefill against the recurrence
+SSM_CHECK_PROMPTS = SERVE_SLOTS
+# (c) in fp32 on a depth cut: the SSD and the recurrence are the same sums
+# in other orders, so they agree to fp32 rounding carried through two blocks
+# and the head (the CPU tests' reduced models agree to ~1e-5).
+SSM_FP32_LAYERS = 2
+SSM_FP32_ATOL = 1e-3
+# (e): cut this first should the run near its limit, then N_FINE_SAMPLES.
+FAMILY_REQUESTS = SERVE_REQUESTS
+# An MoE capacity factor at which no pair of a 16-position chunk or a
+# 32-token prompt drops (a token takes an expert once, so cap >= the
+# sequence's length suffices): granite's paged mode is served again at it
+# and held to generation, whose prompts go token by token and never drop,
+# and the control prefills of (e) run at it, as the reference's own
+# decode-vs-forward test raises it.
+NO_DROP_CAPACITY = 8.0
+# (e) The token rule again in fp32 on a depth cut of each family (zamba2's
+# keeps one invocation of the shared block), where delta is rounding, far
+# below the top-2 gaps; in bf16 at full width delta is 0.3-1.4 logits.
+FAMILY_FP32_LAYERS = {"granite-moe-3b-a800m": 2, "mamba2-1.3b": 2, "zamba2-1.2b": 6}
+
+
+def _leaves(node):
+    if isinstance(node, dict):
+        for v in node.values():
+            yield from _leaves(v)
+    elif isinstance(node, list):
+        for v in node:
+            yield from _leaves(v)
+    else:
+        yield node
+
+
+def _named(node, prefix=""):
+    if isinstance(node, dict):
+        for k, v in node.items():
+            yield from _named(v, f"{prefix}{k}.")
+    else:
+        yield prefix[:-1], node
+
+
+def family_params(torch, cfg):
+    """(a) Seeded random weights at full width on the card (drawn there),
+    their count within the reference's bounds."""
+    from repro_torch.models import build_model
+    from repro_torch.models.lm import param_count
+
+    t0 = time.perf_counter()
+    params = build_model(cfg).init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    n = param_count(params)
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    fp32 = sorted({k for b in params["blocks"][:1] for k, t in _named(b) if t.dtype == torch.float32})
+    lo, hi = FAMILY_PARAM_BOUNDS[cfg.arch_id]
+    print(f"[6c] {cfg.arch_id} ({cfg.family}): {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"vocab {cfg.vocab}; {n:,} parameters ({n / 1e9:.3f}e9, the reference's bounds "
+          f"{lo:.1e}..{hi:.1e}), {n_bytes / 1e9:.3f} GB, fp32 leaves of a block {fp32}; drawn in "
+          f"{time.perf_counter() - t0:.1f} s")
+    if not lo <= n <= hi:
+        fail(f"{cfg.arch_id}: {n} parameters outside the reference's bounds {lo}..{hi}")
+    return params
+
+
+def ssm_prefill_checks(torch, cfg, params):
+    """(c) mamba2's chunked prefill (chunk 128, the SSD) against the
+    recurrence (``prefill_state``'s decode steps, replayed by a B = 8
+    ``DecodeGraph``, which (e) holds bit for bit against the eager steps)
+    on SSM_CHECK_PROMPTS prompts: argmaxes equal wherever the top-2 gap is
+    at least 2 delta, delta the difference between the chunk-128 and
+    chunk-64 prefills.  The same two computations in fp32 on the first
+    SSM_FP32_LAYERS blocks (the weights cast) agree within SSM_FP32_ATOL."""
+    from repro_torch.models import build_model
+    from repro_torch.runtime.serve_loop import DecodeGraph
+
+    gen = torch.Generator().manual_seed(6)
+    tokens = torch.randint(0, cfg.vocab, (SSM_CHECK_PROMPTS, SSM_CHECK_LEN), generator=gen).cuda()
+    bundle = build_model(cfg)
+    t0 = time.perf_counter()
+    l128 = bundle.prefill(params, {"tokens": tokens})[:, -1]
+    l64 = build_model(replace(cfg, ssm=replace(cfg.ssm, chunk=64))).prefill(
+        params, {"tokens": tokens})[:, -1]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    rec = DecodeGraph(bundle, params, SSM_CHECK_PROMPTS, SSM_CHECK_LEN, name="6c recurrence")
+    lrec = rec.prefill(tokens)[1][:, -1]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    del rec
+    delta = float((l128 - l64).abs().max())
+    d_rec = float((l128 - lrec).abs().max())
+    n_div = 0
+    for r in range(SSM_CHECK_PROMPTS):
+        if int(l128[r].argmax()) != int(lrec[r].argmax()):
+            gap = _top2_gap(torch, lrec[r])
+            print(f"[6c] prompt {r}: chunked argmax {int(l128[r].argmax())} vs recurrence "
+                  f"{int(lrec[r].argmax())}, top-2 gap {gap:.4e}")
+            if not gap < 2 * delta:
+                fail(f"mamba2 prompt {r}: chunked prefill and recurrence disagree at top-2 gap "
+                     f"{gap} >= 2 delta ({delta})")
+            n_div += 1
+    if not all(bool(torch.isfinite(x).all()) for x in (l128, l64, lrec)):
+        fail("mamba2 prefill logits are not finite")
+    cut, p32 = _fp32_cut(torch, cfg, params, SSM_FP32_LAYERS)
+    f_chunk = build_model(cut).prefill(p32, {"tokens": tokens})[:, -1]
+    f_rec = build_model(cut).prefill_state(p32, tokens, SSM_CHECK_LEN)[0][:, -1]
+    d32 = float((f_chunk - f_rec).abs().max())
+    print(f"[6c] {cfg.arch_id}: {SSM_CHECK_PROMPTS} prompts of {SSM_CHECK_LEN} tokens, bf16, prefill "
+          f"(chunk {cfg.ssm.chunk}) vs the recurrence: max abs diff {d_rec:.4e}; delta (chunk "
+          f"{cfg.ssm.chunk} vs 64) {delta:.4e}; {n_div} argmaxes differ, each at a near tie; "
+          f"walls: two chunked prefills {t1 - t0:.3f} s, the recurrence (capture and "
+          f"{SSM_CHECK_LEN} replays) {t2 - t1:.3f} s.  fp32, first {SSM_FP32_LAYERS} blocks: "
+          f"max abs diff {d32:.4e} (bound {SSM_FP32_ATOL}; logits range "
+          f"{float(f_rec.min()):.3f}..{float(f_rec.max()):.3f})")
+    if not d32 <= SSM_FP32_ATOL:
+        fail(f"mamba2 fp32: chunked prefill and recurrence differ by {d32} > {SSM_FP32_ATOL}")
+
+
+def _cast(node, dtype):
+    if isinstance(node, dict):
+        return {k: _cast(v, dtype) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_cast(v, dtype) for v in node]
+    return node.to(dtype)
+
+
+def _fp32_cut(torch, cfg, params, n_layers):
+    """The first ``n_layers`` blocks of ``cfg`` and ``params`` in fp32."""
+    cut = replace(cfg, n_layers=n_layers, param_dtype="float32", compute_dtype="float32")
+    p32 = {k: v for k, v in params.items() if k != "blocks"}
+    p32["blocks"] = params["blocks"][:n_layers]
+    return cut, _cast(p32, torch.float32)
+
+
+def _no_drops(cfg):
+    """``cfg`` with its MoE at NO_DROP_CAPACITY (unchanged without one)."""
+    if cfg.moe is None:
+        return cfg
+    return replace(cfg, moe=replace(cfg.moe, capacity_factor=NO_DROP_CAPACITY))
+
+
+def family_prefill_32k(torch, cfg, params):
+    """(d) mamba2's prefill_32k prompt at batch 1, counters at 0 just before
+    -> the tensor-core flash launches, which must be none (granite and
+    zamba2 run theirs through ``three_prefills``)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models import build_model
+
+    s = _prefill_len()
+    tokens = torch.randint(0, cfg.vocab, (1, s), generator=torch.Generator().manual_seed(5)).cuda()
+    bundle = build_model(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_counters()
+    t0 = time.perf_counter()
+    logits = bundle.prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, fp32 = fa.LAUNCHES["tensor_core"].value, fa.LAUNCHES["cuda_core"].value
+    print(f"[6c] {cfg.arch_id} prefill of {s} tokens, batch 1: {wall:.3f} s wall, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; flash_attention launches: "
+          f"tensor-core route {launches} (want {attention_calls(cfg)}), fp32 route {fp32}")
+    if launches != attention_calls(cfg) or fp32:
+        fail(f"{cfg.arch_id}: the 32k prefill launched flash {launches} (tensor-core) and {fp32} "
+             f"(fp32) times, want {attention_calls(cfg)} and 0")
+    if logits.shape != (1, 1, cfg.vocab) or not bool(torch.isfinite(logits).all()):
+        fail(f"{cfg.arch_id}: 32k prefill logits {tuple(logits.shape)} are not finite (1, 1, V)")
+    return launches
+
+
+def family_reference(torch, cfg, params, work, gen_tokens):
+    """(e) The references of the top-2 rule and the graph checks.
+
+    delta_first: the largest first-token logit difference between the
+    serving prefill (B = 1 decode steps) and a control that does not run
+    the flash kernel (the chunked-attention prefill; mamba2's SSD prefill);
+    the kernel prefill may differ from the serving prefill by at most
+    PREFILL_DIFF_FACTOR times it (in bf16: the fp32 depth cut holds tokens,
+    not the kernel's route).  An MoE prefill routes the prompt as one
+    sequence, so these run at NO_DROP_CAPACITY.  Reference logits: the B = 1
+    graph teacher-forced on generation's tokens; delta_mode: their largest
+    difference from the B = 8 graph's (every slot holding the request).
+    The eager B = 1 and B = 8 steps must equal the graphs' bit for bit on
+    two requests (logits, and the recurrent state after the steps)."""
+    from repro_torch.models import build_model
+    from repro_torch.models.lm import decode_step, slot_insert
+    from repro_torch.runtime.serve_loop import DecodeGraph
+
+    bundle = build_model(cfg)
+    ctrl_cfg = _no_drops(cfg)
+    hold_kernel = cfg.family != "ssm" and cfg.compute_dtype == "bfloat16"
+    ctrl = build_model(replace(ctrl_cfg, attn_impl="chunked"))
+    kern = build_model(ctrl_cfg)
+    g1 = DecodeGraph(bundle, params, 1, SERVE_CACHE_LEN, name="6c check B=1")
+    g8 = DecodeGraph(bundle, params, SERVE_SLOTS, SERVE_CACHE_LEN, name=f"6c check B={SERVE_SLOTS}")
+    long = next((i for i, (_, n) in enumerate(work) if n >= 16), len(work) - 1)
+    eager_checked = {0, long}
+    ref, delta_first, delta_kernel, delta_mode = [], 0.0, 0.0, 0.0
+    unequal_, n_cmp = 0, 0
+
+    def same(a, b):
+        nonlocal unequal_, n_cmp
+        unequal_ += unequal([a], [b])
+        n_cmp += a.numel()
+
+    for i, ((p, _), g) in enumerate(zip(work, gen_tokens)):
+        prompt = torch.as_tensor(p).cuda()
+        _, ls = g1.prefill(prompt)
+        lc = ctrl.prefill(params, {"tokens": prompt})
+        delta_first = max(delta_first, float((lc - ls).abs().max()))
+        if hold_kernel:
+            lk = kern.prefill(params, {"tokens": prompt})
+            delta_kernel = max(delta_kernel, float((lk - ls).abs().max()))
+        logits = [ls[0, -1]]
+        eager = i in eager_checked
+        if eager:
+            le, st1 = bundle.prefill_state(params, prompt, SERVE_CACHE_LEN)
+            same(le, ls)
+            pool = bundle.decode_init(params, {"tokens": prompt.expand(SERVE_SLOTS, -1)},
+                                      SERVE_CACHE_LEN)
+            for slot in range(SERVE_SLOTS):
+                slot_insert(pool, st1, slot)
+        g8.reset()
+        snap = g1.snapshot()
+        for slot in range(SERVE_SLOTS):
+            slot_insert(g8.state, snap, slot)
+        for j in range(1, len(g)):
+            feed = torch.full((1, 1), int(g[j - 1]), device="cuda")
+            _, l1 = g1(feed)
+            _, l8 = g8(feed.expand(SERVE_SLOTS, 1))
+            logits.append(l1[0, -1])
+            delta_mode = max(delta_mode, float((l8[:, -1] - l1[0, -1]).abs().max()))
+            if eager:
+                le, st1 = decode_step(params, cfg, st1, feed)
+                same(le, l1)
+                le8, pool = decode_step(params, cfg, pool, feed.expand(SERVE_SLOTS, 1))
+                same(le8, l8)
+        if eager and cfg.ssm is not None:
+            for a, b in ((st1.ssm_h, g1.state.ssm_h), (st1.ssm_conv, g1.state.ssm_conv),
+                         (pool.ssm_h, g8.state.ssm_h), (pool.ssm_conv, g8.state.ssm_conv)):
+                same(a, b)
+        ref.append(logits)
+    print(f"[6c] {cfg.arch_id}: graphs vs eager steps at B=1 and B={SERVE_SLOTS}, teacher-forced "
+          f"on requests {sorted(eager_checked)}: {unequal_} of {n_cmp} values unequal (logits"
+          f"{', recurrent state' if cfg.ssm is not None else ''}); delta_first (control prefill "
+          f"vs serving prefill) {delta_first:.4e}, kernel prefill vs serving prefill "
+          + (f"{delta_kernel:.4e}" if hold_kernel else "(not held)")
+          + f"; delta_mode (B=1 vs B={SERVE_SLOTS} graphs) {delta_mode:.4e}")
+    if unequal_:
+        fail(f"{cfg.arch_id}: graph replays differ from the eager steps in {unequal_} values")
+    if not delta_kernel <= PREFILL_DIFF_FACTOR * delta_first:
+        fail(f"{cfg.arch_id}: kernel prefill differs from the serving prefill by {delta_kernel}, "
+             f"more than {PREFILL_DIFF_FACTOR}x the control's {delta_first}")
+    return {"ref_logits": ref, "first_logits": [r[0] for r in ref], "delta_first": delta_first,
+            "delta_mode": delta_mode, "graphs": {1: g1, SERVE_SLOTS: g8}}
+
+
+def top2_rule(torch, label, tokens, gen, ref, delta) -> int:
+    """Tokens that differ from generation's only where the reference's top-2
+    gap at the first divergence is below 2 delta -> how many diverged."""
+    import numpy as np
+
+    n_div = 0
+    for i, (t, g) in enumerate(zip(tokens, gen)):
+        if np.array_equal(t, g):
+            continue
+        j = int(np.flatnonzero(t != g)[0])
+        gap = _top2_gap(torch, ref[i][j])
+        print(f"[6c] {label} request {i} diverges from generation at token {j} ({int(t[j])} vs "
+              f"{int(g[j])}), top-2 gap {gap:.4e}")
+        if not gap < 2 * delta:
+            fail(f"{label} request {i}: diverges at top-2 gap {gap} >= 2 delta ({delta})")
+        n_div += 1
+    return n_div
+
+
+def _median_top2_gap(torch, ref) -> float:
+    """The median top-2 gap over every reference logit row of ``ref``."""
+    top = torch.topk(torch.stack([r.float() for rows in ref for r in rows]), 2, dim=-1).values
+    return float((top[:, 0] - top[:, 1]).median())
+
+
+def _held_paged(cfg) -> str:
+    """The paged tokens held to generation: an MoE's at NO_DROP_CAPACITY."""
+    return "paged" if cfg.moe is None else "paged, no drops"
+
+
+def family_tokens_held(torch, cfg, params, work, tokens, label):
+    """(e) ``tokens`` (by mode) held to generation's: speculative exactly,
+    continuous and paged by the top-2 rule with delta = max(delta_first,
+    delta_mode) of ``family_reference`` -> its result, with "delta" and
+    "median_gap", the median top-2 gap of the reference logits (below 2
+    delta the rule can hardly fail)."""
+    import numpy as np
+
+    gen = tokens["generation"]
+    for i, (s_, g_) in enumerate(zip(tokens.get("speculative", gen), gen)):
+        if not np.array_equal(s_, g_):
+            fail(f"{cfg.arch_id}{label} request {i}: speculative tokens differ from generation's")
+    served = family_reference(torch, cfg, params, work, gen)
+    delta = max(served["delta_first"], served["delta_mode"])
+    median = _median_top2_gap(torch, served["ref_logits"])
+    held = {m: top2_rule(torch, f"{cfg.arch_id}{label} {m}", tokens[m], gen, served["ref_logits"],
+                         delta)
+            for m in ("continuous", _held_paged(cfg)) if m in tokens}
+    spec = ("speculative" + ("" if cfg.family == "moe" else " (plain greedy)")
+            + f" == generation for all {len(work)} requests; " if "speculative" in tokens else "")
+    print(f"[6c] {cfg.arch_id}{label} tokens: {spec}"
+          + ", ".join(f"{m} {n} of {len(work)} diverge" for m, n in held.items())
+          + f", each at a near tie: delta {delta:.4e}, 2 delta {2 * delta:.4e} against the median "
+          f"top-2 gap of the {sum(len(r) for r in served['ref_logits'])} reference logit rows "
+          f"{median:.4e}")
+    served.update(delta=delta, median_gap=median, work=work)
+    return served
+
+
+def family_fp32_cut(torch, cfg, params, work):
+    """(e) The token rule where it has teeth: generation, continuous and
+    paged (an MoE's at NO_DROP_CAPACITY) on the family's first
+    FAMILY_FP32_LAYERS blocks in fp32, held as at full width, and 2 delta
+    must lie below the median top-2 gap."""
+    cut, p32 = _fp32_cut(torch, cfg, params, FAMILY_FP32_LAYERS[cfg.arch_id])
+    tokens = {}
+    for mode in ("generation", "continuous") + (() if cfg.family == "hybrid" else ("paged",)):
+        key = _held_paged(cut) if mode == "paged" else mode
+        kw = {"block_size": PAGED_BLOCK_SIZE, "prefill_chunk": PAGED_CHUNK} if mode == "paged" else {}
+        tokens[key], _ = serve_work(torch, _no_drops(cut) if mode == "paged" else cut, p32, mode,
+                                    work, "6c fp32 cut", **kw)
+    label = f" (fp32, first {cut.n_layers} blocks)"
+    served = family_tokens_held(torch, cut, p32, work, tokens, label)
+    served.pop("graphs")
+    if not 2 * served["delta"] < served["median_gap"]:
+        fail(f"{cfg.arch_id}{label}: 2 delta {2 * served['delta']} is not below the median top-2 "
+             f"gap {served['median_gap']}: the token rule could hardly fail")
+
+
+def family_serving(torch, cfg, params):
+    """(e) Every serving mode the family has, on phase 6's kind of work."""
+    import numpy as np
+
+    from repro_torch.models import build_model
+    from repro_torch.models.lm import decode_step
+    from repro_torch.runtime.serve_loop import ServingEngine
+
+    rng = np.random.default_rng(0)
+    work = []
+    for _ in range(FAMILY_REQUESTS):  # as launch/serve.py draws them (one variant)
+        rng.integers(1)
+        n_new = int(rng.choice([1, 4, 16, 64], p=[0.4, 0.3, 0.2, 0.1]))
+        work.append((rng.integers(0, cfg.vocab, size=(1, SERVE_PROMPT_LEN)), n_new))
+    modes = ["generation", "continuous", "paged", "speculative"]
+    if cfg.family == "hybrid":
+        modes.remove("paged")
+        try:
+            ServingEngine({cfg.arch_id: cfg}, mode="paged", cache_len=SERVE_CACHE_LEN,
+                          device="cuda", params={cfg.arch_id: params})
+        except ValueError as e:
+            print(f"[6c] {cfg.arch_id}: paged mode refused: {e}")
+        else:
+            fail(f"{cfg.arch_id}: the paged mode was not refused")
+    kw = {"paged": {"block_size": PAGED_BLOCK_SIZE, "prefill_chunk": PAGED_CHUNK},
+          "speculative": {"spec_k": SPEC_K, "spec_draft_layers": cfg.n_layers // 2}}
+    tokens, metrics = {}, {}
+    for mode in modes:
+        tokens[mode], metrics[mode] = serve_work(torch, cfg, params, mode, work, "6c",
+                                                 **kw.get(mode, {}))
+    if cfg.moe is not None:
+        # At the configured capacity a 16-position chunk drops pairs that
+        # generation's token-by-token prompt keeps: a different result,
+        # counted here; the same work at NO_DROP_CAPACITY is held instead.
+        n_diff = sum(not np.array_equal(t, g) for t, g in zip(tokens["paged"], tokens["generation"]))
+        print(f"[6c] {cfg.arch_id}: paged at capacity factor {cfg.moe.capacity_factor}: {n_diff} "
+              f"of {len(work)} requests' tokens differ from generation's (not held); served "
+              f"again at {NO_DROP_CAPACITY}, where no pair drops")
+        tokens[_held_paged(cfg)], _ = serve_work(torch, _no_drops(cfg), params, "paged", work,
+                                                 "6c", **kw["paged"])
+    served = family_tokens_held(torch, cfg, params, work, tokens, "")
+    if "paged" in tokens:
+        if cfg.moe is not None:  # the graphs at the configured capacity, bit for bit
+            g, _, _ = paged_graph_checks(torch, cfg, params, {**served, "first_logits": None},
+                                         "6c")
+            del g
+        g, _, _ = paged_graph_checks(torch, _no_drops(cfg), params, served, "6c")
+        del g
+    family_fp32_cut(torch, cfg, params, work)
+
+    # Decode steps eager against replay, B = 1 and B = 8, by the host's clock.
+    graphs = served.pop("graphs")
+    prompt = torch.as_tensor(work[0][0]).cuda()
+    bundle = build_model(cfg)
+    states = {1: bundle.prefill_state(params, prompt, SERVE_CACHE_LEN)[1]}
+    states[SERVE_SLOTS] = bundle.decode_init(params, {"tokens": prompt.expand(SERVE_SLOTS, -1)},
+                                             SERVE_CACHE_LEN)
+    for B, graph in graphs.items():
+        graph.prefill(prompt.expand(B, -1).contiguous())
+        if B > 1:
+            states[B] = graph.snapshot()
+        feed = torch.zeros((B, 1), dtype=torch.int64, device="cuda")
+
+        def eager(B=B, feed=feed):
+            states[B] = decode_step(params, cfg, states[B], feed)[1]
+
+        step_ms, _ = host_times_in_turns(torch, {"eager": eager, "replay": partial(graph, feed)}, 5)
+        print(f"[6c] {cfg.arch_id} decode step B={B} (host clock, ending in synchronize, mean of "
+              f"2 x 5 in turns): eager {step_ms['eager']:.3f} ms, replay {step_ms['replay']:.3f} ms")
+
+    def row(mode):
+        m = metrics[mode]
+        return (f"{mode} {m['tokens_per_s']:.1f} tok/s, ttft mean {m['ttft_mean_s'] * 1e3:.1f} "
+                f"p99 {m['ttft_p99_s'] * 1e3:.1f} ms, per-token p50 "
+                f"{m['per_token_p50_s'] * 1e3:.2f} p99 {m['per_token_p99_s'] * 1e3:.2f} ms")
+
+    print(f"[6c] {cfg.arch_id} serving: " + "; ".join(row(m) for m in modes))
+
+
+def phase_families(torch, rows, ended=lambda phase: None):
+    """6c: granite-moe-3b-a800m, mamba2-1.3b and zamba2-1.2b at full width,
+    one after another, each freed before the next."""
+    import gc
+
+    from repro_torch.configs import ARCHS
+
+    rows["flash_attention"]["launches_phase_6c"] = {}
+    for name in FAMILY_ARCHS:
+        cfg = ARCHS[name]
+        params = family_params(torch, cfg)
+        if cfg.family == "ssm":
+            ssm_prefill_checks(torch, cfg, params)
+            launches = family_prefill_32k(torch, cfg, params)
+        else:
+            s = _prefill_len()
+            tokens = torch.randint(0, cfg.vocab, (1, s),
+                                   generator=torch.Generator().manual_seed(5)).cuda()
+            print(f"[6c] {name}: one {s}-token prompt at batch 1, the kernel path against plain "
+                  "blocked attention")
+            _, launches = three_prefills(torch, cfg, params, tokens, "6c")
+        rows["flash_attention"]["launches_phase_6c"][name] = launches
+        family_serving(torch, cfg, params)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        ended(f"6c {name}")
+
+
 def phase_lm(torch, rows, ended=lambda phase: None):
     """Phases 5, 6 and 6b on one set of seeded full-width weights."""
     from repro_torch.models import build_model
@@ -2446,6 +2959,7 @@ def main() -> None:
     ended("4d sharded pools and restart")
     del res
     phase_lm(torch, rows, ended)
+    phase_families(torch, rows, ended)
     print(f"[7] all phases passed in {time.perf_counter() - t_start:.1f}s; seconds by phase "
           f"{phase_walls}")
     keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

@@ -1,25 +1,29 @@
-"""Configurations of the port: the Tōhoku MLDA presets and the dense LM zoo
+"""Configurations of the port: the Tōhoku MLDA presets and the LM zoo
 (``--arch <id>``)."""
 from __future__ import annotations
 
 from typing import Dict
 
-from .base import SHAPES, ArchConfig, ShapeConfig, arch_from_reference
+from .base import SHAPES, ArchConfig, MoEConfig, ShapeConfig, SSMConfig, arch_from_reference
+from .granite_moe_3b_a800m import CONFIG as granite_moe_3b_a800m
+from .mamba2_1_3b import CONFIG as mamba2_1_3b
+from .phi4_mini_3_8b import CONFIG as phi4_mini_3_8b
 from .qwen2_0_5b import CONFIG as qwen2_0_5b
 from .smollm_360m import CONFIG as smollm_360m
 from .tohoku_mlda import CONFIGS, CPU, PAPER, MLDAWorkloadConfig
+from .zamba2_1_2b import CONFIG as zamba2_1_2b
 
-# The dense architectures the port runs.
-ARCHS: Dict[str, ArchConfig] = {c.arch_id: c for c in [qwen2_0_5b, smollm_360m]}
+# The architectures the port runs.
+ARCHS: Dict[str, ArchConfig] = {
+    c.arch_id: c
+    for c in [qwen2_0_5b, smollm_360m, phi4_mini_3_8b, zamba2_1_2b, mamba2_1_3b,
+              granite_moe_3b_a800m]
+}
 # The reference's other architectures, by family: not ported yet.
 REFERENCE_ONLY: Dict[str, str] = {
-    "phi4-mini-3.8b": "dense",
     "nemotron-4-340b": "dense",
     "llava-next-mistral-7b": "vlm",
-    "zamba2-1.2b": "hybrid",
-    "mamba2-1.3b": "ssm",
     "mixtral-8x22b": "moe",
-    "granite-moe-3b-a800m": "moe",
     "whisper-large-v3": "encdec",
 }
 
@@ -41,9 +45,11 @@ __all__ = [
     "CONFIGS",
     "CPU",
     "MLDAWorkloadConfig",
+    "MoEConfig",
     "PAPER",
     "REFERENCE_ONLY",
     "SHAPES",
+    "SSMConfig",
     "ShapeConfig",
     "arch_from_reference",
     "get_arch",

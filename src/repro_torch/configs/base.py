@@ -1,8 +1,9 @@
 """Architecture and shape configuration of the port's LM zoo.
 
-The port serves the dense decoder-only family with the SwiGLU MLP only; the
-MoE, SSM, hybrid, encoder-decoder and VLM families of the reference, and its
-squared-ReLU MLP, wait (ROADMAP Queue 1 item 8), and asking for them raises
+The port serves the decoder-only dense, MoE, SSM (Mamba2) and hybrid
+(Mamba2 with one shared attention block) families with the SwiGLU or GELU
+MLP; the reference's encoder-decoder and VLM families, and its squared-ReLU
+MLP, wait (ROADMAP Queue 1 item 8), and asking for them raises
 :class:`NotImplementedError`.
 """
 from __future__ import annotations
@@ -21,14 +22,40 @@ _REFERENCE_ATTN_IMPL = {"pallas": "kernel", "chunked": "chunked", "xla": "xla"}
 NOT_PORTED = "not ported yet (ROADMAP Queue 1 item 8)"
 NOT_TRAINED = "not ported yet (ROADMAP Queue 1 item 9)"
 NOT_SHARDED = "not ported yet (ROADMAP Queue 1 item 10)"
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
+MLPS = ("swiglu", "gelu")
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff: int  # per-expert hidden size
+    capacity_factor: float = 1.25
+    impl: str = "sparse"  # "sparse" (capacity dispatch) | "dense" (all experts)
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    d_state: int
+    expand: int = 2
+    head_dim: int = 64
+    d_conv: int = 4
+    chunk: int = 128
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def n_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
 
 
 @dataclass(frozen=True)
 class ArchConfig:
-    """One dense decoder-only architecture (``configs/<id>.py``)."""
+    """One decoder-only architecture (``configs/<id>.py``)."""
 
     arch_id: str
-    family: str  # "dense"; the reference's other families are not ported
+    family: str  # one of FAMILIES
     n_layers: int
     d_model: int
     n_heads: int
@@ -37,26 +64,32 @@ class ArchConfig:
     vocab: int
     head_dim: Optional[int] = None  # default d_model // n_heads
     qkv_bias: bool = False
-    mlp: str = "swiglu"  # the only MLP ported
+    mlp: str = "swiglu"  # one of MLPS
     rope_theta: float = 10000.0
     sliding_window: Optional[int] = None
     tie_embeddings: bool = False
     norm_eps: float = 1e-5
+    moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    # hybrid (zamba2): one *shared* attention block after every k core blocks
+    shared_attn_every: Optional[int] = None
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
     attn_impl: str = "kernel"  # one of ATTN_IMPLS
     source: str = ""
 
     def __post_init__(self) -> None:
-        if self.family != "dense":
+        if self.family not in FAMILIES:
             raise NotImplementedError(f"family '{self.family}': {NOT_PORTED}")
-        if self.mlp != "swiglu":
+        if self.mlp not in MLPS:
             raise NotImplementedError(f"mlp '{self.mlp}': {NOT_PORTED}")
         if self.attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl '{self.attn_impl}' not in {ATTN_IMPLS}")
 
     @property
     def hd(self) -> int:
+        """Attention head size; an attention-free model (mamba2, ``n_heads``
+        0) has none and never asks."""
         return self.head_dim or (self.d_model // self.n_heads)
 
     def reduced(self) -> "ArchConfig":
@@ -64,9 +97,8 @@ class ArchConfig:
         kv_ratio = max(1, self.n_heads // max(self.n_kv_heads, 1))
         heads = min(self.n_heads, 4)
         kv = max(1, heads // min(kv_ratio, max(heads, 1))) if heads else 0
-        return replace(
-            self,
-            n_layers=min(self.n_layers, 2),
+        changes: Dict = dict(
+            n_layers=min(self.n_layers, 2 if self.shared_attn_every is None else 4),
             d_model=64,
             n_heads=heads,
             n_kv_heads=kv,
@@ -76,16 +108,28 @@ class ArchConfig:
             param_dtype="float32",
             compute_dtype="float32",
         )
+        if self.moe is not None:
+            changes["moe"] = replace(self.moe, n_experts=min(self.moe.n_experts, 4),
+                                     top_k=min(self.moe.top_k, 2), d_ff=64)
+        if self.ssm is not None:
+            changes["ssm"] = replace(self.ssm, d_state=16, head_dim=16, chunk=16)
+        if self.shared_attn_every is not None:
+            changes["shared_attn_every"] = 2
+        return replace(self, **changes)
 
 
 def arch_from_reference(ref) -> ArchConfig:
     """The port's config for a reference ``ArchConfig`` (any object with its
-    attributes): same fields, with the reference's ``attn_impl`` names
-    mapped onto the port's ("pallas" -> "kernel")."""
-    if ref.family != "dense":
+    attributes): same fields, the nested MoE and SSM configs converted, and
+    the reference's ``attn_impl`` names mapped onto the port's ("pallas" ->
+    "kernel")."""
+    if ref.family not in FAMILIES:
         raise NotImplementedError(f"family '{ref.family}': {NOT_PORTED}")
     kw = {f.name: getattr(ref, f.name) for f in fields(ArchConfig)}
     kw["attn_impl"] = _REFERENCE_ATTN_IMPL[ref.attn_impl]
+    for name, cls in (("moe", MoEConfig), ("ssm", SSMConfig)):
+        if kw[name] is not None:
+            kw[name] = cls(**{f.name: getattr(kw[name], f.name) for f in fields(cls)})
     return ArchConfig(**kw)
 
 

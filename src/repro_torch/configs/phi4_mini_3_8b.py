@@ -1,0 +1,16 @@
+"""phi4-mini-3.8b — RoPE SwiGLU GQA.  [arXiv:2412.08905; hf]"""
+from .base import ArchConfig
+
+CONFIG = ArchConfig(
+    arch_id="phi4-mini-3.8b",
+    family="dense",
+    n_layers=32,
+    d_model=3072,
+    n_heads=24,
+    n_kv_heads=8,
+    d_ff=8192,
+    vocab=200064,
+    mlp="swiglu",
+    rope_theta=10000.0,
+    source="arXiv:2412.08905",
+)

@@ -2,13 +2,19 @@
 
 ``python -m repro_torch.launch.serve --arch qwen2-0.5b --requests 24``
 
+``--arch`` takes any id of ``repro_torch.configs.ARCHS``: the dense
+qwen2-0.5b, smollm-360m and phi4-mini-3.8b, the MoE granite-moe-3b-a800m,
+the SSM mamba2-1.3b and the hybrid zamba2-1.2b.
+
 Prefill and decode are two balancer tag families routed ``cost_aware``
 across replicas, and each decode server is a slot pool that admits
 requests into the in-flight batch at token boundaries.  ``--mode
 generation`` runs the request-per-generation baseline, ``--kv paged`` (or
 ``--mode paged``) the block-table pool with chunked prefill, and ``--mode
 speculative`` greedy self-speculative decoding; every mode emits the same
-greedy tokens.  The reduced config is the default; ``--no-reduced``
+greedy tokens.  The SSM family's paged pool holds no blocks (chunked
+prefill into its recurrent state), the hybrid's is refused, and both
+serve plain greedy under ``--mode speculative``.  The reduced config is the default; ``--no-reduced``
 serves the full-width model (on the card).  ``--device cpu`` runs the
 plain PyTorch versions of the kernels.
 """
@@ -20,14 +26,14 @@ from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 
-from repro_torch.configs import get_arch
+from repro_torch.configs import ARCHS, get_arch
 from repro_torch.runtime.serve_loop import ServingEngine, serving_metrics
 
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", action="append", default=None,
-                    help="model variant(s); repeat for a heterogeneous pool")
+                    help=f"model variant(s) of {sorted(ARCHS)}; repeat for a heterogeneous pool")
     # The reference's flag is store_true with default True, so its full
     # config cannot be asked for; here --no-reduced serves the full width.
     ap.add_argument("--reduced", action=argparse.BooleanOptionalAction, default=True)

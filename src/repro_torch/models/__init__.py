@@ -1,5 +1,5 @@
-"""The dense decoder-only LM zoo of the port (plain PyTorch, per-layer
-parameter dicts)."""
+"""The decoder-only LM zoo of the port: the dense, MoE, SSM and hybrid
+families (plain PyTorch, per-layer parameter dicts)."""
 from .zoo import (
     ModelBundle,
     build_model,

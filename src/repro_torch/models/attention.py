@@ -95,9 +95,12 @@ class KVCache(NamedTuple):
     pos_buf: torch.Tensor
 
 
-def init_kv_cache(cfg: ArchConfig, batch: int, seq_len: int, dtype, device) -> KVCache:
+def init_kv_cache(cfg: ArchConfig, batch: int, seq_len: int, dtype, device,
+                  n_entries: Optional[int] = None) -> KVCache:
+    """``n_entries`` caches (default one a layer; the hybrid has one an
+    invocation of its shared block)."""
     w = min(seq_len, cfg.sliding_window or seq_len)
-    shape = (cfg.n_layers, batch, cfg.n_kv_heads, w, cfg.hd)
+    shape = (n_entries or cfg.n_layers, batch, cfg.n_kv_heads, w, cfg.hd)
     return KVCache(
         k=torch.zeros(shape, dtype=dtype, device=device),
         v=torch.zeros(shape, dtype=dtype, device=device),

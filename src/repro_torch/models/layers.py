@@ -14,16 +14,24 @@ def dtype_of(name: str) -> torch.dtype:
 
 
 # -- init helpers ------------------------------------------------------------
+def normal_init(gen: torch.Generator, shape, scale: float, dtype, device) -> torch.Tensor:
+    """fp32 normals times ``scale`` from ``gen`` (drawn on the generator's own
+    device), in ``dtype`` on ``device``.  On the ``meta`` device nothing is
+    drawn: the tensor has the shape and dtype only (parameter counts)."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
+    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device) * scale
+    return w.to(device=device, dtype=dtype)
+
+
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype, device,
                scale: Optional[float] = None) -> torch.Tensor:
     scale = scale if scale is not None else d_in**-0.5
-    w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32) * scale
-    return w.to(device=device, dtype=dtype)
+    return normal_init(gen, (d_in, d_out), scale, dtype, device)
 
 
 def embed_init(gen: torch.Generator, vocab: int, d: int, dtype, device) -> torch.Tensor:
-    w = torch.randn((vocab, d), generator=gen, dtype=torch.float32) * 0.02
-    return w.to(device=device, dtype=dtype)
+    return normal_init(gen, (vocab, d), 0.02, dtype, device)
 
 
 # -- norms -------------------------------------------------------------------
@@ -56,21 +64,36 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return torch.stack([y1, y2], dim=-1).reshape(x.shape).to(x.dtype)
 
 
-# -- MLP (SwiGLU, the only kind ported) ------------------------------------------
+# -- MLP variants (SwiGLU and GELU; squared ReLU is not ported) ----------------
 def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, kind: str, dtype, device) -> Params:
-    if kind != "swiglu":
-        raise ValueError(kind)
-    return {
-        "w_gate": dense_init(gen, d_model, d_ff, dtype, device),
-        "w_up": dense_init(gen, d_model, d_ff, dtype, device),
-        "w_down": dense_init(gen, d_ff, d_model, dtype, device),
-    }
+    if kind == "swiglu":
+        return {
+            "w_gate": dense_init(gen, d_model, d_ff, dtype, device),
+            "w_up": dense_init(gen, d_model, d_ff, dtype, device),
+            "w_down": dense_init(gen, d_ff, d_model, dtype, device),
+        }
+    if kind == "gelu":
+        return {
+            "w_up": dense_init(gen, d_model, d_ff, dtype, device),
+            "w_down": dense_init(gen, d_ff, d_model, dtype, device),
+        }
+    raise ValueError(kind)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh approximation (``F.gelu``'s
+    default is the exact erf form)."""
+    return F.gelu(x, approximate="tanh")
 
 
 def mlp(params: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
-    if kind != "swiglu":
+    if kind == "swiglu":
+        h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
+    elif kind == "gelu":
+        h = gelu(x @ params["w_up"])
+    else:
         raise ValueError(kind)
-    return (F.silu(x @ params["w_gate"]) * (x @ params["w_up"])) @ params["w_down"]
+    return h @ params["w_down"]
 
 
 def unembed(x: torch.Tensor, w_embed: torch.Tensor) -> torch.Tensor:

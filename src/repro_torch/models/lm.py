@@ -1,26 +1,37 @@
-"""Decoder-only LM of the dense family: parameters, forward, prefill and
-decode.
+"""Decoder-only LM of the dense, MoE, SSM and hybrid families: parameters,
+forward, prefill and decode.
 
 The reference's ``models/lm.py`` for one card: a Python loop over a list of
 per-layer parameter dicts where the reference scans a stacked tree, no
-remat and no sharding constraints.  The decode state carries one position
-per batch row (see :mod:`repro_torch.models.attention`), so the
-continuous-batching pool is simply a batch of rows.  The paged functions
-keep one block pool for every slot and per-slot block tables, all on the
-device, so a CUDA graph captured over them reads each slot's blocks at
-replay.  The MoE, SSM, hybrid and VLM branches are not ported (ROADMAP
-Queue 1 item 8): :class:`~repro_torch.configs.base.ArchConfig` refuses
-those families, and the training loss waits with item 9.
+remat and no sharding constraints.  The hybrid (zamba2) keeps its Mamba2
+blocks in one list too (the reference's ``blocks`` groups, then
+``blocks_tail``) and applies the single parameter-tied ``shared`` attention
+block after layers ``every - 1``, ``2 every - 1``, ..., each invocation with
+a KV cache of its own.  An MoE block calls the MoE FFN where a dense block
+calls its MLP.
+
+The decode state carries one position per batch row (see
+:mod:`repro_torch.models.attention`), so the continuous-batching pool is
+simply a batch of rows; the KV cache and the recurrent SSM state are
+written in place, so a CUDA graph captured over a step reads and writes
+them as they are at replay.  The paged functions keep one block pool for
+every slot and per-slot block tables, all on the device; for the SSM
+family a "paged" pool is the slot-stacked recurrent state with no blocks,
+and the hybrid's caches are refused there, as in the reference.  The
+encoder-decoder and VLM families wait (ROADMAP Queue 1 item 8):
+:class:`~repro_torch.configs.base.ArchConfig` refuses them; the training
+loss waits with item 9.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple, Union
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import NOT_TRAINED, ArchConfig
 
+from . import moe
 from .attention import (
     KVCache,
     PagedKVCache,
@@ -35,25 +46,45 @@ from .attention import (
     init_paged_kv_cache,
 )
 from .layers import Params, dense_init, dtype_of, embed_init, init_mlp, mlp, rmsnorm, unembed
+from .ssm import init_mamba, mamba_block, mamba_decode_step
+
+MAMBA_FAMILIES = ("ssm", "hybrid")
 
 
 # ---------------------------------------------------------------------------
 # Parameters
 # ---------------------------------------------------------------------------
-def _init_block(gen: torch.Generator, cfg: ArchConfig, dtype, device) -> Params:
-    return {
+def _init_attn_block(gen: torch.Generator, cfg: ArchConfig, dtype, device) -> Params:
+    p: Params = {
         "ln1": torch.ones((cfg.d_model,), dtype=dtype, device=device),
         "attn": init_attention(gen, cfg, dtype, device),
         "ln2": torch.ones((cfg.d_model,), dtype=dtype, device=device),
-        "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp, dtype, device),
+    }
+    if cfg.family == "moe":
+        p["moe"] = moe.init_moe(gen, cfg, dtype, device)
+    else:
+        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp, dtype, device)
+    return p
+
+
+def _init_mamba_block(gen: torch.Generator, cfg: ArchConfig, dtype, device) -> Params:
+    return {
+        "ln1": torch.ones((cfg.d_model,), dtype=dtype, device=device),
+        "mamba": init_mamba(gen, cfg, dtype, device),
     }
 
 
 def init_params(gen: torch.Generator, cfg: ArchConfig, device="cuda") -> Params:
     """Random parameters from ``gen``: ``{"blocks": [per-layer dict, ...],
-    "embed", "ln_f"[, "unembed"]}`` with the reference's leaf names."""
+    "embed", "ln_f"[, "unembed"][, "shared"]}`` with the reference's leaf
+    names; ``device="meta"`` gives the shapes only."""
     dtype = dtype_of(cfg.param_dtype)
-    params: Params = {"blocks": [_init_block(gen, cfg, dtype, device) for _ in range(cfg.n_layers)]}
+    block = _init_mamba_block if cfg.family in MAMBA_FAMILIES else _init_attn_block
+    params: Params = {"blocks": [block(gen, cfg, dtype, device) for _ in range(cfg.n_layers)]}
+    if cfg.shared_attn_every:
+        # Zamba2's shared block: full-width attention and MLP, one set of
+        # tensors used at every invocation.
+        params["shared"] = _init_attn_block(gen, cfg, dtype, device)
     params["embed"] = embed_init(gen, cfg.vocab, cfg.d_model, dtype, device)
     params["ln_f"] = torch.ones((cfg.d_model,), dtype=dtype, device=device)
     if not cfg.tie_embeddings:
@@ -61,12 +92,40 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, device="cuda") -> Params:
     return params
 
 
+def param_count(params: Params) -> int:
+    """Elements of every leaf (the shared block counted once)."""
+
+    def count(node) -> int:
+        if isinstance(node, dict):
+            return sum(count(v) for v in node.values())
+        if isinstance(node, list):
+            return sum(count(v) for v in node)
+        return node.numel()
+
+    return count(params)
+
+
+def _shared_invocation(cfg: ArchConfig, layer: int) -> Optional[int]:
+    """Which invocation of the hybrid's shared block follows ``layer``, if
+    any: after every ``shared_attn_every``-th block; the tail has none."""
+    every = cfg.shared_attn_every
+    if every and (layer + 1) % every == 0:
+        return (layer + 1) // every - 1
+    return None
+
+
 # ---------------------------------------------------------------------------
 # Forward (prefill)
 # ---------------------------------------------------------------------------
-def _apply_block(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def _ffn(p: Params, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    if cfg.family == "moe":
+        return moe.moe_ffn(p["moe"], h, cfg.moe)
+    return mlp(p["mlp"], h, cfg.mlp)
+
+
+def _apply_attn_block(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     x = x + attention_train(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cfg)
-    return x + mlp(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps), cfg.mlp)
+    return x + _ffn(p, rmsnorm(x, p["ln2"], cfg.norm_eps), cfg)
 
 
 def _head(params: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
@@ -80,8 +139,13 @@ def _head(params: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
 def _trunk(params: Params, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
     """Embedding and every block -> the final residual stream (B, S, d)."""
     x = params["embed"][tokens].to(dtype_of(cfg.compute_dtype))
-    for p in params["blocks"]:
-        x = _apply_block(p, x, cfg)
+    for layer, p in enumerate(params["blocks"]):
+        if cfg.family in MAMBA_FAMILIES:
+            x = x + mamba_block(p["mamba"], rmsnorm(x, p["ln1"], cfg.norm_eps), cfg)
+        else:
+            x = _apply_attn_block(p, x, cfg)
+        if _shared_invocation(cfg, layer) is not None:
+            x = _apply_attn_block(params["shared"], x, cfg)
     return x
 
 
@@ -102,16 +166,70 @@ def prefill(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]) -> 
 # Serving: decode
 # ---------------------------------------------------------------------------
 class DecodeState(NamedTuple):
-    """What a decode step carries between tokens: the KV cache and each
-    row's next position ``pos`` (B,)."""
+    """What a decode step carries between tokens: the KV cache (None for the
+    SSM family), each row's next position ``pos`` (B,), and for the SSM and
+    hybrid families the recurrent state ``ssm_h`` (L, B, H, P, N) in fp32
+    and the rolling conv input ``ssm_conv`` (L, B, K-1, conv_dim) in the
+    compute dtype (None otherwise)."""
 
-    kv: KVCache
+    kv: Optional[KVCache]
     pos: torch.Tensor
+    ssm_h: Optional[torch.Tensor] = None
+    ssm_conv: Optional[torch.Tensor] = None
 
 
 def init_decode_state(cfg: ArchConfig, batch: int, seq_len: int, device="cuda") -> DecodeState:
-    kv = init_kv_cache(cfg, batch, seq_len, dtype_of(cfg.compute_dtype), device)
-    return DecodeState(kv=kv, pos=torch.zeros((batch,), dtype=torch.int64, device=device))
+    dtype = dtype_of(cfg.compute_dtype)
+    pos = torch.zeros((batch,), dtype=torch.int64, device=device)
+    kv = ssm_h = ssm_conv = None
+    if cfg.family != "ssm":
+        n_entries = cfg.n_layers // cfg.shared_attn_every if cfg.shared_attn_every else None
+        kv = init_kv_cache(cfg, batch, seq_len, dtype, device, n_entries)
+    if cfg.family in MAMBA_FAMILIES:
+        ssm = cfg.ssm
+        h = ssm.n_heads(cfg.d_model)
+        ssm_h = torch.zeros((cfg.n_layers, batch, h, ssm.head_dim, ssm.d_state),
+                            dtype=torch.float32, device=device)
+        conv_dim = ssm.d_inner(cfg.d_model) + 2 * ssm.d_state
+        ssm_conv = torch.zeros((cfg.n_layers, batch, ssm.d_conv - 1, conv_dim), dtype=dtype,
+                               device=device)
+    return DecodeState(kv=kv, pos=pos, ssm_h=ssm_h, ssm_conv=ssm_conv)
+
+
+def _attn_block_decode(p: Params, x, kv: KVCache, entry: int, pos_buf, pos, cfg: ArchConfig):
+    h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+    o, _, _, pos_buf = attention_decode(p["attn"], h, kv.k[entry], kv.v[entry], pos_buf, pos, cfg)
+    x = x + o
+    return x + _ffn(p, rmsnorm(x, p["ln2"], cfg.norm_eps), cfg), pos_buf
+
+
+def _decode_trunk(params: Params, cfg: ArchConfig, state: DecodeState, tokens: torch.Tensor,
+                  active: Optional[torch.Tensor] = None):
+    """One token a row through every block -> (final residual (B, 1, d),
+    pos_buf).  Caches and recurrent state are written in place; where
+    ``active`` (B,) is False a row's recurrent state keeps its old value
+    (the recurrence has no scratch row to absorb a dummy feed)."""
+    x = params["embed"][tokens].to(dtype_of(cfg.compute_dtype))
+    pos = state.pos
+    kv = state.kv
+    pos_buf = kv.pos_buf if kv is not None else None
+    for layer, p in enumerate(params["blocks"]):
+        if cfg.family in MAMBA_FAMILIES:
+            h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+            o, new_h, new_conv = mamba_decode_step(p["mamba"], h, state.ssm_h[layer],
+                                                   state.ssm_conv[layer], cfg)
+            if active is not None:
+                new_h = torch.where(active[:, None, None, None], new_h, state.ssm_h[layer])
+                new_conv = torch.where(active[:, None, None], new_conv, state.ssm_conv[layer])
+            state.ssm_h[layer].copy_(new_h)
+            state.ssm_conv[layer].copy_(new_conv)
+            x = x + o
+            entry = _shared_invocation(cfg, layer)
+            if entry is not None:
+                x, pos_buf = _attn_block_decode(params["shared"], x, kv, entry, pos_buf, pos, cfg)
+        else:
+            x, pos_buf = _attn_block_decode(p, x, kv, layer, pos_buf, pos, cfg)
+    return x, pos_buf
 
 
 def decode_step(
@@ -120,18 +238,11 @@ def decode_step(
     state: DecodeState,
     tokens: torch.Tensor,  # (B, 1)
 ) -> Tuple[torch.Tensor, DecodeState]:
-    """One token for every row -> (logits (B, 1, V), state).  The cache in
-    ``state`` is updated in place."""
-    x = params["embed"][tokens].to(dtype_of(cfg.compute_dtype))
-    pos = state.pos
-    kv = state.kv
-    pos_buf = kv.pos_buf
-    for layer, p in enumerate(params["blocks"]):
-        h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-        o, _, _, pos_buf = attention_decode(p["attn"], h, kv.k[layer], kv.v[layer], pos_buf, pos, cfg)
-        x = x + o
-        x = x + mlp(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps), cfg.mlp)
-    return _head(params, cfg, x), DecodeState(kv=KVCache(kv.k, kv.v, pos_buf), pos=pos + 1)
+    """One token for every row -> (logits (B, 1, V), state).  The cache and
+    recurrent state in ``state`` are updated in place."""
+    x, pos_buf = _decode_trunk(params, cfg, state, tokens)
+    kv = state.kv if state.kv is None else KVCache(state.kv.k, state.kv.v, pos_buf)
+    return _head(params, cfg, x), state._replace(kv=kv, pos=state.pos + 1)
 
 
 def prefill_state(
@@ -161,10 +272,14 @@ def pool_decode_state(cfg: ArchConfig, n_slots: int, cache_len: int, device="cud
 
 def slot_insert(pool_state: DecodeState, seq_state: DecodeState, slot: int) -> DecodeState:
     """Write one sequence's B = 1 decode state into pool row ``slot`` (in
-    place)."""
-    pool_state.kv.k[:, slot] = seq_state.kv.k[:, 0]
-    pool_state.kv.v[:, slot] = seq_state.kv.v[:, 0]
-    pool_state.kv.pos_buf[slot] = seq_state.kv.pos_buf[0]
+    place): caches, recurrent state and position."""
+    if pool_state.kv is not None:
+        pool_state.kv.k[:, slot] = seq_state.kv.k[:, 0]
+        pool_state.kv.v[:, slot] = seq_state.kv.v[:, 0]
+        pool_state.kv.pos_buf[slot] = seq_state.kv.pos_buf[0]
+    if pool_state.ssm_h is not None:
+        pool_state.ssm_h[:, slot] = seq_state.ssm_h[:, 0]
+        pool_state.ssm_conv[:, slot] = seq_state.ssm_conv[:, 0]
     pool_state.pos[slot] = seq_state.pos[0]
     return pool_state
 
@@ -185,26 +300,38 @@ def slot_evict(pool_state: DecodeState, cfg: ArchConfig, cache_len: int, slot: i
 class PagedDecodeState(NamedTuple):
     """Pool-wide decode state for paged continuous batching.
 
-    ``kv``: the shared :class:`PagedKVCache` block pool.
+    ``kv``: the shared :class:`PagedKVCache` block pool (None for ssm).
     ``tables``: (n_slots, max_blocks) int64 pool rows of each slot;
     unleased entries point at the scratch row 0 and are only read at
-    positions that ``pos`` masks out.
+    positions that ``pos`` masks out (None for ssm).
     ``pos``: (n_slots,) int64 position of each slot.
+    ``ssm_h`` / ``ssm_conv``: for ssm, the recurrent state of every slot,
+    (L, n_slots, H, P, N) and (L, n_slots, K-1, conv_dim) (the reference
+    stacks (n_slots, L, 1, ...)).  An SSM sequence's state is O(1), so its
+    pool holds no blocks: "paged" is the slot state plus chunked prefill.
     """
 
-    kv: PagedKVCache
-    tables: torch.Tensor
+    kv: Optional[PagedKVCache]
+    tables: Optional[torch.Tensor]
     pos: torch.Tensor
+    ssm_h: Optional[torch.Tensor] = None
+    ssm_conv: Optional[torch.Tensor] = None
 
 
 def check_paged_support(cfg: ArchConfig, cache_len: int) -> None:
     """Raise if ``cfg`` cannot serve through the paged path.
 
-    A slot's view is a never-wrapping identity map of its positions, so the
-    slab cache it stands in for must never wrap either: a sliding window
-    shorter than ``cache_len`` makes the slab cache a ring whose layout
-    (and summation order) differs."""
-    if cfg.sliding_window is not None and cfg.sliding_window < cache_len:
+    The hybrid's caches are not block-structured.  A slot's view is a
+    never-wrapping identity map of its positions, so the slab cache it
+    stands in for must never wrap either: a sliding window shorter than
+    ``cache_len`` makes the slab cache a ring whose layout (and summation
+    order) differs."""
+    if cfg.family not in ("dense", "moe", "ssm"):
+        raise ValueError(
+            f"paged decoding unsupported for family {cfg.family!r} "
+            "(hybrid/encdec caches are not block-structured)"
+        )
+    if cfg.family != "ssm" and cfg.sliding_window is not None and cfg.sliding_window < cache_len:
         raise ValueError(
             f"paged decoding requires sliding_window >= cache_len "
             f"({cfg.sliding_window} < {cache_len}): the slab reference wraps"
@@ -221,11 +348,16 @@ def init_paged_state(
     device="cuda",
 ) -> PagedDecodeState:
     check_paged_support(cfg, cache_len)
+    pos = torch.zeros((n_slots,), dtype=torch.int64, device=device)
+    if cfg.family == "ssm":
+        rows = init_decode_state(cfg, n_slots, cache_len, device)
+        return PagedDecodeState(kv=None, tables=None, pos=pos, ssm_h=rows.ssm_h,
+                                ssm_conv=rows.ssm_conv)
     kv = init_paged_kv_cache(cfg, n_block_rows, block_size, dtype_of(cfg.compute_dtype), device)
     return PagedDecodeState(
         kv=kv,
         tables=torch.zeros((n_slots, max_blocks), dtype=torch.int64, device=device),
-        pos=torch.zeros((n_slots,), dtype=torch.int64, device=device),
+        pos=pos,
     )
 
 
@@ -260,10 +392,17 @@ def paged_decode_step(
     scratch row 0 for inactive slots) with one scatter a layer, then each
     slot attends over the gather of its table rows.  Everything is computed
     from the state's tensors, so a graph captured over this step reads the
-    tables and positions as they are at replay.  The block pool is updated
-    in place; the returned state carries the new positions."""
+    tables and positions as they are at replay.  The block pool (for ssm,
+    the active slots' recurrent state) is updated in place; the returned
+    state carries the new positions."""
     n = tokens.shape[0]
     pos = state.pos
+    new_pos = pos + active.to(pos.dtype)
+    if cfg.family == "ssm":
+        rows = DecodeState(kv=None, pos=pos, ssm_h=state.ssm_h, ssm_conv=state.ssm_conv)
+        x, _ = _decode_trunk(params, cfg, rows, tokens.reshape(n, 1), active)
+        ids, logits = _lm_head_token(params, cfg, x)
+        return state._replace(pos=new_pos), ids, logits
     kv = state.kv
     bs = kv.k.shape[2]
     slots = torch.arange(n, device=pos.device)
@@ -281,9 +420,9 @@ def paged_decode_step(
         vk = _view(kv.k[layer], state.tables, cache_len)
         vv = _view(kv.v[layer], state.tables, cache_len)
         x = x + attend_view(p["attn"], q, vk, vv, pos, cfg)
-        x = x + mlp(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps), cfg.mlp)
+        x = x + _ffn(p, rmsnorm(x, p["ln2"], cfg.norm_eps), cfg)
     ids, logits = _lm_head_token(params, cfg, x)
-    return state._replace(pos=pos + active.to(pos.dtype)), ids, logits
+    return state._replace(pos=new_pos), ids, logits
 
 
 def paged_prefill_chunk(
@@ -298,15 +437,30 @@ def paged_prefill_chunk(
     """Feed one slot a chunk of C positions -> (state, id (1,), logits
     (1, 1, V)) of the chunk's last position.
 
-    The chunk is one batched pass a layer: all C positions projected and
-    RoPE'd at once, written into the slot's blocks with one scatter, and
-    attended under :func:`attend_view_chunk`'s causal mask.  The head runs
-    on the last position only.  ``slot`` and ``start_pos`` are tensors, so
-    a graph captured over this function serves every slot and offset."""
+    For KV families the chunk is one batched pass a layer: all C positions
+    projected and RoPE'd at once, written into the slot's blocks with one
+    scatter, and attended under :func:`attend_view_chunk`'s causal mask (an
+    MoE layer routes the chunk as one sequence, so its capacity follows C).
+    The SSM family steps the slot's recurrent state through the C tokens
+    one by one (the recurrence is sequential).  The head runs on the last
+    position only.  ``slot`` and ``start_pos`` are tensors, so a graph
+    captured over this function serves every slot and offset."""
+    c = tokens.shape[0]
+    idx = slot.reshape(1)
+    pos = state.pos.scatter(0, idx, (start_pos + c).reshape(1))
+    if cfg.family == "ssm":
+        row = DecodeState(kv=None, pos=start_pos.reshape(1),
+                          ssm_h=state.ssm_h.index_select(1, idx),
+                          ssm_conv=state.ssm_conv.index_select(1, idx))
+        for t in range(c):
+            x, _ = _decode_trunk(params, cfg, row, tokens[t : t + 1].reshape(1, 1))
+        state.ssm_h.index_copy_(1, idx, row.ssm_h)
+        state.ssm_conv.index_copy_(1, idx, row.ssm_conv)
+        ids, logits = _lm_head_token(params, cfg, x)
+        return state._replace(pos=pos), ids, logits
     kv = state.kv
     bs = kv.k.shape[2]
-    row = state.tables[slot.reshape(1)]  # (1, max_blocks)
-    c = tokens.shape[0]
+    row = state.tables[idx]  # (1, max_blocks)
     positions = start_pos + torch.arange(c, device=tokens.device)
     blks = row[0, positions // bs]
     offs = positions % bs
@@ -319,18 +473,22 @@ def paged_prefill_chunk(
         vk = _view(kv.k[layer], row, cache_len)
         vv = _view(kv.v[layer], row, cache_len)
         x = x + attend_view_chunk(p["attn"], q, vk, vv, positions, cfg)
-        x = x + mlp(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps), cfg.mlp)
+        x = x + _ffn(p, rmsnorm(x, p["ln2"], cfg.norm_eps), cfg)
     ids, logits = _lm_head_token(params, cfg, x)
-    pos = state.pos.scatter(0, slot.reshape(1), (start_pos + c).reshape(1))
     return state._replace(pos=pos), ids, logits
 
 
 def paged_reset_slot(state: PagedDecodeState, slot: int,
                      row: Union[np.ndarray, torch.Tensor]) -> PagedDecodeState:
     """Point ``slot`` at block-table ``row`` and rewind it to position 0 (in
-    place).  The blocks are not cleared: the ``j <= pos`` rule masks stale
-    entries until they are overwritten in order."""
-    state.tables[slot] = torch.as_tensor(row, dtype=torch.int64).to(state.tables.device)
+    place); an SSM slot's recurrent state is zeroed.  The blocks are not
+    cleared: the ``j <= pos`` rule masks stale entries until they are
+    overwritten in order."""
+    if state.tables is not None:
+        state.tables[slot] = torch.as_tensor(row, dtype=torch.int64).to(state.tables.device)
+    if state.ssm_h is not None:
+        state.ssm_h[:, slot] = 0
+        state.ssm_conv[:, slot] = 0
     state.pos[slot] = 0
     return state
 

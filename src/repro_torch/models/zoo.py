@@ -1,5 +1,6 @@
 """Model zoo: serving entry points, input shapes and weights carried across
-from the reference for the dense architectures."""
+from the reference for the decoder-only families (dense, MoE, SSM,
+hybrid)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -8,7 +9,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import NOT_PORTED, ArchConfig, ShapeConfig
+from repro_torch.configs.base import FAMILIES, NOT_PORTED, ArchConfig, ShapeConfig
 
 from . import lm
 from .attention import PagedKVCache
@@ -30,7 +31,7 @@ class ModelBundle:
 
 
 def build_model(cfg: ArchConfig) -> ModelBundle:
-    if cfg.family != "dense":
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(f"family '{cfg.family}': {NOT_PORTED}")
     return ModelBundle(
         cfg=cfg,
@@ -50,7 +51,7 @@ def input_specs(
     """Model inputs of one (arch x shape) cell as ``{name: (shape, dtype)}``:
     the token batch for train and prefill, the (B, 1) next tokens for decode
     (the KV cache comes from ``decode_init``)."""
-    if cfg.family != "dense":
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(f"family '{cfg.family}': {NOT_PORTED}")
     b = batch_override or shape.global_batch
     if shape.kind == "decode":
@@ -64,13 +65,14 @@ def input_specs(
 # ---------------------------------------------------------------------------
 # Weights carried across from the reference
 # ---------------------------------------------------------------------------
-def _to_tensor(a: Any, dtype: torch.dtype, device) -> torch.Tensor:
+def _to_tensor(a: Any, dtype: Optional[torch.dtype], device) -> torch.Tensor:
+    """``a`` on ``device`` in ``dtype`` (None: its own dtype)."""
     a = np.array(a)  # a writable copy
     if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: reinterpret the bits
         t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(a)
-    return t.to(device=device, dtype=dtype)
+    return t.to(device=device, dtype=dtype or t.dtype)
 
 
 def _per_layer(tree: Dict, n_layers: int) -> List[Dict]:
@@ -84,38 +86,59 @@ def _per_layer(tree: Dict, n_layers: int) -> List[Dict]:
     return [take(tree, i) for i in range(n_layers)]
 
 
+def _convert(node, device):
+    """A reference subtree with each leaf in its own dtype (the router and
+    the SSM's ``dt_bias``, ``A_log`` and ``D`` stay fp32 in a bf16 model)."""
+    if isinstance(node, dict):
+        return {k: _convert(v, device) for k, v in node.items()}
+    return _to_tensor(node, None, device)
+
+
+def _flat_groups(tree: Dict, n_groups: int) -> Dict:
+    """Leaves stacked (n_groups, every, ...) -> (n_groups * every, ...)."""
+    if isinstance(tree, dict):
+        return {k: _flat_groups(v, n_groups) for k, v in tree.items()}
+    a = np.asarray(tree)
+    return a.reshape((a.shape[0] * a.shape[1],) + a.shape[2:])
+
+
 def params_from_reference(tree: Dict, cfg: ArchConfig, device="cuda") -> Params:
     """The port's parameters from the reference's ``lm.init_params`` tree
-    (numpy arrays; the layers stacked on axis 0), in ``cfg.param_dtype``."""
-    extra = sorted(set(tree) - {"blocks", "embed", "ln_f", "unembed"})
+    (numpy arrays; the layers stacked on axis 0), each leaf in its own
+    dtype.  The hybrid's grouped ``blocks`` (n_groups, every, ...) and its
+    ``blocks_tail`` become one list of layers; ``shared`` stays one set of
+    tensors."""
+    extra = sorted(set(tree) - {"blocks", "blocks_tail", "shared", "embed", "ln_f", "unembed"})
     if extra:
         raise NotImplementedError(f"parameter groups {extra}: {NOT_PORTED}")
-    dtype = dtype_of(cfg.param_dtype)
-
-    def convert(node):
-        if isinstance(node, dict):
-            return {k: convert(v) for k, v in node.items()}
-        return _to_tensor(node, dtype, device)
-
-    params = {k: convert(v) for k, v in tree.items() if k != "blocks"}
-    params["blocks"] = [convert(b) for b in _per_layer(tree["blocks"], cfg.n_layers)]
+    params = {k: _convert(v, device) for k, v in tree.items()
+              if k not in ("blocks", "blocks_tail")}
+    if cfg.shared_attn_every:
+        n_groups = cfg.n_layers // cfg.shared_attn_every
+        layers = _per_layer(_flat_groups(tree["blocks"], n_groups), n_groups * cfg.shared_attn_every)
+        if "blocks_tail" in tree:
+            layers += _per_layer(tree["blocks_tail"], cfg.n_layers % cfg.shared_attn_every)
+    else:
+        layers = _per_layer(tree["blocks"], cfg.n_layers)
+    params["blocks"] = [_convert(b, device) for b in layers]
     return params
 
 
 def paged_state_from_reference(ref_state: Any, cfg: ArchConfig,
                                device="cuda") -> lm.PagedDecodeState:
     """The port's :class:`~repro_torch.models.lm.PagedDecodeState` from the
-    reference's (numpy leaves; the block pool stacked over layers, as the
-    port's): the pool in ``cfg.compute_dtype``, tables and positions in
-    int64.  The reference's recurrent fields must be empty."""
-    if ref_state.ssm_h is not None or ref_state.ssm_conv is not None:
-        raise NotImplementedError(f"recurrent paged state: {NOT_PORTED}")
+    reference's (numpy leaves): the block pool (stacked over layers, as the
+    port's) in ``cfg.compute_dtype``, tables and positions in int64, and for
+    ssm the recurrent state, the reference's (n_slots, L, 1, ...) stacked
+    into the port's (L, n_slots, ...) in its own dtype."""
     dtype = dtype_of(cfg.compute_dtype)
+    pos = _to_tensor(ref_state.pos, torch.int64, device)
+    if ref_state.ssm_h is not None:
+        h, conv = (_convert(np.asarray(a)[:, :, 0].swapaxes(0, 1), device)
+                   for a in (ref_state.ssm_h, ref_state.ssm_conv))
+        return lm.PagedDecodeState(kv=None, tables=None, pos=pos, ssm_h=h, ssm_conv=conv)
     kv = PagedKVCache(
         k=_to_tensor(ref_state.kv.k, dtype, device), v=_to_tensor(ref_state.kv.v, dtype, device)
     )
-    return lm.PagedDecodeState(
-        kv=kv,
-        tables=_to_tensor(ref_state.tables, torch.int64, device),
-        pos=_to_tensor(ref_state.pos, torch.int64, device),
-    )
+    return lm.PagedDecodeState(kv=kv, tables=_to_tensor(ref_state.tables, torch.int64, device),
+                               pos=pos)

@@ -76,8 +76,9 @@ class DecodeGraph:
     graph (eager on the CPU; see :class:`~repro_torch.graphs.StaticGraph`).
 
     ``state`` is the static state: the graph reads and writes it in place
-    (the step's new positions are copied back into ``state.pos``), so a
-    pool inserts into it directly.  A call takes ``(batch, 1)`` tokens and
+    (caches and recurrent state are written by the step itself, its new
+    positions copied back into ``state.pos``), so a pool inserts into it
+    directly.  A call takes ``(batch, 1)`` tokens and
     returns ``(ids (batch,), logits (batch, 1, V))``.
     """
 
@@ -100,11 +101,16 @@ class DecodeGraph:
         return self.graph(tokens)
 
     def reset(self) -> None:
-        """Empty every row, as ``init_decode_state`` makes them."""
+        """Empty every row, as ``init_decode_state`` makes them: caches,
+        recurrent state and positions."""
         kv = self.state.kv
-        kv.k.zero_()
-        kv.v.zero_()
-        kv.pos_buf.fill_(-1)
+        if kv is not None:
+            kv.k.zero_()
+            kv.v.zero_()
+            kv.pos_buf.fill_(-1)
+        if self.state.ssm_h is not None:
+            self.state.ssm_h.zero_()
+            self.state.ssm_conv.zero_()
         self.state.pos.zero_()
 
     def prefill(self, prompt: torch.Tensor):
@@ -118,9 +124,15 @@ class DecodeGraph:
     def snapshot(self) -> DecodeState:
         """A copy of the state that the next request cannot overwrite."""
         kv = self.state.kv
+
+        def clone(t):
+            return None if t is None else t.clone()
+
         return DecodeState(
-            kv=KVCache(kv.k.clone(), kv.v.clone(), kv.pos_buf.clone()),
+            kv=None if kv is None else KVCache(kv.k.clone(), kv.v.clone(), kv.pos_buf.clone()),
             pos=self.state.pos.clone(),
+            ssm_h=clone(self.state.ssm_h),
+            ssm_conv=clone(self.state.ssm_conv),
         )
 
 
@@ -248,11 +260,18 @@ class PagedGraphs:
         if graph is None:
             # Captured on this call's own inputs: the warm-up writes the
             # chunk's keys and values, and the replay below writes the same
-            # ones again.
+            # ones again.  A recurrent state is not rewritten but advanced,
+            # so the slot's is put back after the warm-up.
+            st = self.state
+            saved = None if st.ssm_h is None else (st.ssm_h[:, slot].clone(),
+                                                   st.ssm_conv[:, slot].clone())
             graph = self.chunks[len(inputs[1])] = StaticGraph(
                 self._chunk_fn, [x.to(self.device) for x in inputs],
                 name=f"{self.name} chunk C={len(inputs[1])}",
             )
+            if saved is not None:
+                st.ssm_h[:, slot] = saved[0]
+                st.ssm_conv[:, slot] = saved[1]
         return graph(*inputs)
 
 
@@ -278,11 +297,14 @@ def make_paged_decode_pool(
     sequences.  The pool's state is the static state of a
     :class:`PagedGraphs`, made when the pool first allocates its state: a
     step is one copy of tokens and mask in, one replay and one copy of the
-    ``(n_slots,)`` ids out.
+    ``(n_slots,)`` ids out.  An SSM pool holds 0 blocks: its state is the
+    slots' recurrent state, and only chunked prefill remains.
     """
     check_paged_support(bundle.cfg, cache_len)
     max_blocks = -(-cache_len // block_size)
-    if n_blocks is None:
+    if bundle.cfg.family == "ssm":
+        n_blocks = 0
+    elif n_blocks is None:
         n_blocks = n_slots * max_blocks
     graphs: Optional[PagedGraphs] = None
 
@@ -328,9 +350,11 @@ def make_paged_decode_pool(
 
 
 def speculative_supported(cfg: ArchConfig, cache_len: int) -> bool:
-    """Self-speculative decoding rewinds ``pos`` and relies on the stale
-    entries past it being masked, so the cache must never wrap."""
-    return cfg.sliding_window is None or cfg.sliding_window >= cache_len
+    """Self-speculative decoding needs a KV family (the verify step rewinds
+    ``pos`` and relies on the stale entries past it being masked; a
+    recurrent state cannot rewind) and a cache that never wraps."""
+    return cfg.family in ("dense", "moe") and (
+        cfg.sliding_window is None or cfg.sliding_window >= cache_len)
 
 
 def make_speculative_fn(
@@ -362,8 +386,8 @@ def make_speculative_fn(
     """
     cfg = bundle.cfg
     if not speculative_supported(cfg, cache_len):
-        raise ValueError(f"speculative decoding needs sliding_window >= cache_len "
-                         f"({cfg.sliding_window} < {cache_len})")
+        raise ValueError(f"speculative decoding needs a KV family (not {cfg.family!r}) and "
+                         f"sliding_window >= cache_len ({cfg.sliding_window} < {cache_len})")
     if spec_k < 1:
         raise ValueError(f"spec_k must be >= 1, got {spec_k}")
     d_layers = draft_layers if draft_layers is not None else max(1, cfg.n_layers // 2)
@@ -621,8 +645,9 @@ class ServingEngine:
                             on_round=partial(self._record_spec, f"spec:{vname}"),
                         )
                     else:
-                        # A cache that wraps cannot rewind: serve plain greedy
-                        # under the spec tag.
+                        # A recurrent state or a cache that wraps cannot
+                        # rewind: serve plain greedy under the spec tag, so
+                        # a mixed zoo still takes one workload.
                         fn = make_generate_fn(bundle, p, cache_len)
                     servers.append(Server(fn, name=f"spec:{vname}#{r}",
                                           capacity_tags=[f"spec:{vname}"]))

@@ -163,7 +163,7 @@ def test_configs_carry_across():
         if name not in ARCHS:
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 get_arch(name)
-            if jcfg.family != "dense" or jcfg.mlp != "swiglu":
+            if jcfg.family in ("encdec", "vlm") or jcfg.mlp == "sqrelu":
                 with pytest.raises(NotImplementedError, match="ROADMAP"):
                     arch_from_reference(jcfg)
             continue
@@ -210,4 +210,4 @@ def test_bf16_weights_carry_across():
     assert params["embed"].dtype == torch.bfloat16
     assert np.array_equal(params["blocks"][1]["w"].float().numpy(), w[1].astype(np.float32))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        params_from_reference({**tree, "shared": w}, cfg, "cpu")
+        params_from_reference({**tree, "projector": w}, cfg, "cpu")

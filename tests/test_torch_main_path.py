@@ -150,8 +150,8 @@ def test_device_defaults_to_card_and_never_falls_back():
 
 
 def test_later_slices_raise_not_implemented(tmp_path):
-    """What is still unported raises and names its ROADMAP item: the other
-    LM families (item 8), the training loss (item 9), the tensor-parallel
+    """What is still unported raises and names its ROADMAP item: the
+    encoder-decoder and VLM families (item 8), the training loss (item 9), the tensor-parallel
     layout and the sharded serving steps (item 10).  The ensemble runner's
     on-disk checkpoints, which raised here before the checkpoint module
     was ported, now take effect."""
@@ -160,7 +160,7 @@ def test_later_slices_raise_not_implemented(tmp_path):
     from repro_torch.runtime import serve_loop, sharding
 
     with pytest.raises(NotImplementedError, match="item 8"):
-        ArchConfig(arch_id="m", family="moe", n_layers=1, d_model=8, n_heads=1,
+        ArchConfig(arch_id="m", family="encdec", n_layers=1, d_model=8, n_heads=1,
                    n_kv_heads=1, d_ff=8, vocab=8)
     with pytest.raises(NotImplementedError, match="item 9"):
         lm.lm_loss

@@ -36,7 +36,12 @@ from repro_torch.models import (
     paged_state_from_reference,
     params_from_reference,
 )
-from repro_torch.runtime.serve_loop import PagedGraphs, ServingEngine, speculative_supported
+from repro_torch.runtime.serve_loop import (
+    PagedGraphs,
+    ServingEngine,
+    make_speculative_fn,
+    speculative_supported,
+)
 
 DENSE = ["qwen2-0.5b", "smollm-360m"]
 ATOL = 1e-4
@@ -473,6 +478,81 @@ def test_never_fits_raises_typed_error_and_pool_survives():
 
 
 # ---------------------------------------------------------------------------
+# The MoE family's paged functions against the reference's
+# ---------------------------------------------------------------------------
+MOE = "granite-moe-3b-a800m"
+# Slot 0 fills its four blocks (chunks of 12 and 1, then steps), slot 1
+# two; slot 2 is never leased.
+MOE_ROWS = {0: [3, 7, 1, 8], 1: [2, 5, 0, 0]}
+
+
+@pytest.fixture(scope="module")
+def granite():
+    jcfg = JAX_ARCHS[MOE].reduced()
+    return jcfg, jax_lm.init_params(jax.random.key(2), jcfg)
+
+
+@pytest.mark.parametrize("capacity_factor", [None, 8.0])
+def test_moe_paged_functions_match_reference(granite, capacity_factor):
+    """From one carried-across state: chunks of 12 and 1 positions into
+    slot 0 and of 5 into slot 1, then steps with slots inactive, against
+    the reference's ``paged_prefill_chunk`` and ``paged_decode_step``:
+    pools, positions and ids.  A chunk routes as one sequence, so at the
+    reduced config's own capacity factor the 12-position chunk drops pairs
+    (24 over 4 experts of 8 rows each), the same pairs as the reference's,
+    and its logits leave the slab prefill's, which routes token by token;
+    at 8 no pair drops, and the logits equal the reference's slab prefill
+    and decode of the same tokens."""
+    jcfg, jparams = granite
+    if capacity_factor is not None:
+        jcfg = dataclasses.replace(
+            jcfg, moe=dataclasses.replace(jcfg.moe, capacity_factor=capacity_factor))
+    cfg = arch_from_reference(jcfg)
+    model = (jcfg, jparams, cfg, params_from_reference(jax.tree.map(np.asarray, jparams), cfg,
+                                                        "cpu"))
+    jst = jax_lm.init_paged_state(jcfg, N_SLOTS, N_BLOCKS + 1, BLOCK_SIZE, MAX_BLOCKS, CACHE_LEN)
+    for slot, rows in MOE_ROWS.items():
+        jst = jax_lm.paged_reset_slot(jst, jnp.int32(slot), jnp.asarray(rows, jnp.int32))
+    st = _to_port(jst, cfg)
+    feeds, slabs = {}, {}
+    for slot, pieces in ((0, (12, 1)), (1, (5,))):
+        prompt = _tokens(cfg, sum(pieces), 30 + slot)
+        start = 0
+        for n in pieces:
+            jst, st, jtok, ids, logits = _chunk_both(model, jst, st, slot,
+                                                     prompt[start : start + n], start)
+            _assert_states(st, jst)
+            assert ids.tolist() == [jtok]
+            want, slabs[slot] = jax_lm.prefill_state(
+                jparams, jcfg, jnp.asarray(prompt[None, : start + n], jnp.int32), CACHE_LEN)
+            diff = float(np.abs(logits.numpy() - np.asarray(want)).max())
+            if capacity_factor is not None:
+                assert diff <= ATOL
+            elif n == 12:
+                assert diff > 100 * ATOL  # the dropped pairs show
+            start += n
+        feeds[slot] = jtok
+    for active in ([True, True, False], [True, False, False], [False, True, False]):
+        tokens = np.array([feeds[0], feeds[1], 7])
+        jst, jtoks = jax_lm.paged_decode_step(
+            jparams, jcfg, jst, jnp.asarray(tokens, jnp.int32), jnp.asarray(active), CACHE_LEN)
+        st, ids, logits = lm.paged_decode_step(
+            model[3], cfg, st, _t(tokens), torch.tensor(active), CACHE_LEN)
+        _assert_states(st, jst)
+        for slot in (0, 1):
+            if not active[slot]:
+                continue
+            assert int(ids[slot]) == int(jtoks[slot])
+            want, slabs[slot] = jax_lm.decode_step(
+                jparams, jcfg, slabs[slot], jnp.full((1, 1), feeds[slot], jnp.int32))
+            if capacity_factor is not None:
+                np.testing.assert_allclose(logits[slot].numpy(), np.asarray(want)[0], rtol=0,
+                                           atol=ATOL)
+            feeds[slot] = int(ids[slot])
+    assert st.pos.tolist() == [15, 7, 0]
+
+
+# ---------------------------------------------------------------------------
 # Whole path: the engine's tokens against the reference engine's
 # ---------------------------------------------------------------------------
 def _mixed_work(rng):
@@ -506,6 +586,65 @@ def test_tokens_equal_the_reference_engine(arch, mode):
     else:
         sp = summary["spec_accept"][f"spec:{arch}"]
         assert sp["rounds"] > 0 and sp["drafted"] > 0 and 0.0 <= sp["rate"] <= 1.0
+
+
+@pytest.mark.parametrize("arch,mode", [
+    ("mamba2-1.3b", "paged"), ("mamba2-1.3b", "speculative"),
+    ("granite-moe-3b-a800m", "paged"), ("granite-moe-3b-a800m", "speculative"),
+])
+def test_family_tokens_equal_the_reference_engine(arch, mode):
+    """The reference's REAL_ARCHS cover mamba2 in paged mode (a pool of no
+    blocks: the slots' recurrent state and chunked prefill); granite's
+    paged pool has blocks and routes each chunk as one sequence, as the
+    reference's does.  mamba2's speculative server is plain greedy under
+    the spec tag (no telemetry), granite's drafts with its bottom half."""
+    jcfg = JAX_ARCHS[arch].reduced()
+    work = _mixed_work(np.random.default_rng(1))
+    with JaxEngine({arch: jcfg}, mode=mode, cache_len=24, **ENGINE_KW[mode]) as eng:
+        want = [eng.submit(arch, p, n).result(timeout=300).tokens.tolist() for p, n in work]
+        jparams = jax.tree.map(np.asarray, eng.params[arch])
+    cfg = arch_from_reference(jcfg)
+    params = {arch: params_from_reference(jparams, cfg, "cpu")}
+    with ServingEngine({arch: cfg}, mode=mode, cache_len=24, device="cpu", params=params,
+                       **ENGINE_KW[mode]) as eng:
+        got = [g.result(timeout=120).tokens.tolist() for g in
+               [eng.submit(arch, p, n) for p, n in work]]
+        summary = eng.summary()
+        pools = [s for s in eng.lb.servers if isinstance(s, PagedDecodePool)]
+    assert got == want
+    if mode == "paged":
+        assert [p.n_blocks == 0 for p in pools] == [cfg.family == "ssm"]
+        assert summary["slot_occupancy"]
+    elif cfg.family == "moe":
+        assert summary["spec_accept"][f"spec:{arch}"]["rounds"] > 0
+    else:
+        assert not summary.get("spec_accept")
+
+
+def test_hybrid_paged_is_refused_and_recurrent_spec_servers_fall_back():
+    """zamba2's caches are not block-structured: paged is refused with the
+    reference's message.  A recurrent state cannot rewind, so mamba2 and
+    zamba2 have no self-speculative server; the engine serves them plain
+    greedy under the spec tag, with generation's tokens."""
+    hybrid = arch_from_reference(JAX_ARCHS["zamba2-1.2b"].reduced())
+    for kw in ({"mode": "paged"}, {"kv": "paged"}):
+        with pytest.raises(ValueError, match="hybrid/encdec caches are not block-structured"):
+            ServingEngine({"h": hybrid}, cache_len=24, device="cpu", **kw)
+    ssm_cfg = arch_from_reference(JAX_ARCHS["mamba2-1.3b"].reduced())
+    moe_cfg = arch_from_reference(JAX_ARCHS["granite-moe-3b-a800m"].reduced())
+    assert speculative_supported(moe_cfg, 24)
+    for cfg in (hybrid, ssm_cfg):
+        assert not speculative_supported(cfg, 24)
+        with pytest.raises(ValueError, match="KV family"):
+            make_speculative_fn(build_model(cfg), None, 24)
+    work = _mixed_work(np.random.default_rng(2))
+    out = {}
+    for mode in ("speculative", "generation"):
+        with ServingEngine({"h": hybrid}, mode=mode, cache_len=24, device="cpu", seed=3) as eng:
+            out[mode] = [eng.submit("h", p, n).result(timeout=120).tokens.tolist()
+                         for p, n in work]
+            assert not eng.summary().get("spec_accept")
+    assert out["speculative"] == out["generation"]
 
 
 def test_kv_paged_promotes_continuous_and_validates_prompts():

@@ -58,6 +58,29 @@ def test_tokens_match_each_other_and_the_reference(arch):
             assert np.array_equal(a, b), mode
 
 
+@pytest.mark.parametrize("arch,mode", [
+    ("mamba2-1.3b", "continuous"), ("mamba2-1.3b", "generation"),
+    ("granite-moe-3b-a800m", "continuous"), ("granite-moe-3b-a800m", "generation"),
+    ("zamba2-1.2b", "continuous"), ("zamba2-1.2b", "generation"),
+])
+def test_family_tokens_equal_the_reference_engine(arch, mode):
+    """The MoE, SSM and hybrid families, reduced, on the reference engine's
+    weights: the port's greedy tokens equal the reference engine's in the
+    same mode (paged and speculative: tests/test_torch_paged.py)."""
+    jcfg = JAX_ARCHS[arch].reduced()
+    work = _work(jcfg.vocab, seed=4)
+    with JaxEngine({arch: jcfg}, mode=mode, n_slots=3, cache_len=CACHE_LEN) as eng:
+        want = [eng.submit(arch, p, n).result(timeout=120).tokens.tolist() for p, n in work]
+        jparams = jax.tree.map(np.asarray, eng.params[arch])
+    cfg = arch_from_reference(jcfg)
+    with ServingEngine({arch: cfg}, mode=mode, n_slots=3, cache_len=CACHE_LEN, device="cpu",
+                       params={arch: params_from_reference(jparams, cfg, "cpu")}) as eng:
+        gens = [eng.submit(arch, p, n) for p, n in work]
+        got = [g.result(timeout=120).tokens.tolist() for g in gens]
+    assert got == want
+    assert [len(t) for t in got] == [n for _, n in work]
+
+
 def test_engine_inits_from_the_seed_and_shares_weights_across_modes():
     cfg = ARCHS["qwen2-0.5b"].reduced()
     work = _work(cfg.vocab, seed=3)[:3]
