@@ -16,8 +16,9 @@ Phases (any failure exits non-zero; there is no CPU path):
    shapes of ``MATERN_MEAN_CASES`` (the main path's p = 4, the series GP's
    p = 519, trees over the shared-memory budget), also bit for bit against
    the matrix kernel and the PyTorch contraction); flash
-   attention over the reference's six test
-   cases in fp32 (the CUDA-core route) and in bf16 (the tensor-core route),
+   attention over the reference's six test cases and four more (a ragged
+   non-causal length, head dim 192 causal, windowed and ragged
+   non-causal) in fp32 (the CUDA-core route) and in bf16 (the tensor-core route),
    its bf16 case, and qwen2-0.5b's heads at 4096 tokens against the
    materialising plain version and the plain blocked loop, and at 32768
    tokens in bf16 and fp32 against the blocked loop, the bf16 cases and the
@@ -108,7 +109,8 @@ Phases (any failure exits non-zero; there is no CPU path):
    under capture, the graphs are held to the control difference and the
    top-2 rule instead); a decode step at B = 1 and B = 8 is timed eager
    against replay, and the profiler reads the device's busy share and the
-   largest device operations of a B = 1 step, eager and replayed;
+   largest device operations of a B = 1 step, eager and replayed; the peak
+   memory of one B = 8 step over a 32,768-position cache is printed;
 6b. the paged and speculative modes on phase 6's work and weights (8
    slots, 16-position blocks, 64 blocks, 16-position prefill chunks;
    ``spec_k`` 4 with a 12-layer draft): (a) speculative tokens must equal
@@ -130,9 +132,10 @@ Phases (any failure exits non-zero; there is no CPU path):
    zamba2-1.2b one after another, each freed before the next: (a) the
    parameter count within the reference's bounds; (b) granite's and
    zamba2's prefill_32k prompt at batch 1, the main path's launch of the
-   flash kernel, against plain blocked attention as phase 5 (counters at 0
-   just before each: the tensor-core kernel launches 32 and 6 times, the
-   fp32 route never); (c) mamba2's chunked prefill against the recurrence
+   flash kernel (counters at 0 just before: the tensor-core kernel
+   launches 32 and 6 times, the fp32 route never), the path's first
+   flash call held against plain blocked attention on its own inputs, and
+   phase 5's whole-model rule on a depth cut (2 and 6 blocks); (c) mamba2's chunked prefill against the recurrence
    on 8 prompts of 256 tokens (argmaxes by the top-2 rule, delta the
    chunk-128 vs chunk-64 difference), and both in fp32 on a two-block cut
    within 1e-3; (d) mamba2's prefill_32k prompt: no flash launch; (e)
@@ -149,6 +152,28 @@ Phases (any failure exits non-zero; there is no CPU path):
    recurrent state after), a ``PagedGraphs`` equals the eager paged
    functions bit for bit (granite's at both capacity factors), and decode
    steps at B = 1 and 8 are timed eager against replay;
+6d. the last families in bf16 (seeded weights drawn on the card), one
+   after another, each freed before the next: (a) the four full configs'
+   parameter counts from their shapes, within the reference's bounds;
+   (b) llava-next-mistral-7b at full depth: the prefill_32k prompt of
+   2,880 seeded patches and 29,888 tokens (32 tensor-core launches at
+   D = 128), the path's flash call held against the plain version on its
+   inputs, phase 5's rule on a two-block cut, the patches moving the
+   logits, and 6c's serving checks (all four modes, graphs bit for bit,
+   the fp32 token cut); (c) mixtral-8x22b on four blocks: the prompt
+   through the windowed kernel (window 4096), its call held, paged
+   refused where the window is below the cache, the rolling cache against
+   forward in fp32 on one block (window 16 under a 48-token prompt), and
+   the serving checks at cache_len 128 (paged held at capacity factor 8);
+   (d) nemotron-4-340b on two blocks: the prompt through the D = 192
+   kernel, its call held, the serving checks, and a decode step's peak
+   memory (no fp32 head copy); (e) whisper-large-v3 at full width: the
+   encoder on 1,500 seeded frames (32 non-causal launches at a ragged
+   length) and the decoder on the 32k prompt (32 causal launches,
+   cross-attention plain), each call held, teacher-forced decode steps
+   against ``decode_train`` (fp32 on a 2 + 2 layer cut within 2e-3; bf16
+   by phase 5's rule), and the serving engine's refusal; each held call
+   is timed beside SDPA's time at its shape and its bound;
 7. print the ``kernels`` JSON line, then the result line.
 """
 from __future__ import annotations
@@ -303,6 +328,13 @@ FLASH_CASES = [
     (1, 4, 2, 256, 64, False, None),
     (1, 4, 2, 384, 64, True, 128),
     (1, 2, 2, 512, 128, True, 256),
+    # The paths of the last LM families: a ragged non-causal length (the
+    # whisper encoder's tails in both tiles), and nemotron's head dim 192,
+    # causal, windowed and ragged non-causal.
+    (1, 4, 4, 300, 64, False, None),
+    (1, 4, 2, 256, 192, True, None),
+    (1, 4, 2, 384, 192, True, 128),
+    (1, 2, 2, 300, 192, False, None),
 ]
 # The LM slice: qwen2-0.5b at full width; the prefill_32k shape with its
 # global batch cut from 32 to 1 (the two plain blocked prefills that phase 5
@@ -314,6 +346,9 @@ SERVE_REQUESTS = 16
 SERVE_PROMPT_LEN = 32
 SERVE_CACHE_LEN = 128
 SERVE_SLOTS = 8
+# The decode step's memory is read at a long cache too (the repaired fp32
+# copies grew with the cache and the vocabulary).
+LONG_CACHE_LEN = 32768
 # 6b: the paged pool (n_blocks at its default, SERVE_SLOTS x 8) and the
 # speculative mode (its draft is the bottom half of the layers).
 PAGED_BLOCK_SIZE = 16
@@ -939,8 +974,8 @@ def phase_flash(torch, rows):
         torch, lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True),
         20,
     )
-    pairs = s_long * (s_long + 1) // 2  # visible (q, k) pairs under the causal mask
-    f_bound = bound_ms((2 * h + 2 * hkv) * s_long * d * 2, 4 * h * d * pairs, PEAK_BF16_FLOPS)
+    f_bound = bound_ms((2 * h + 2 * hkv) * s_long * d * 2,
+                       4 * h * d * visible_pairs(s_long, True, None), PEAK_BF16_FLOPS)
     print(f"[2] flash_attention device time per call (CUDA events): (1, {h}, {hkv}, {s_long}, "
           f"{d}) bf16 causal {ms:.4f} ms (bound {f_bound[0]:.4f} ms by {f_bound[1]}; "
           f"scaled_dot_product_attention {library_ms:.4f} ms); at S={s4} kernel "
@@ -1915,9 +1950,10 @@ def attention_calls(cfg) -> int:
     return cfg.n_layers
 
 
-def three_prefills(torch, cfg, params, tokens, phase: str):
-    """The kernel path, then the plain blocked attention with 512-key blocks
-    (the default) and, as the control, with 64-key blocks: two sound
+def three_prefills(torch, cfg, params, batch, phase: str):
+    """On ``batch`` (tokens, and a VLM's patches): the kernel path, then
+    the plain blocked attention with 512-key blocks (the default) and, as
+    the control, with 64-key blocks: two sound
     computations that differ only in where p is rounded, as the kernel's
     64-key tiles differ from the 512-key blocks.  Each with the counters at
     0 just before; the kernel path must launch the tensor-core flash kernel
@@ -1940,7 +1976,7 @@ def three_prefills(torch, cfg, params, tokens, phase: str):
         torch.cuda.reset_peak_memory_stats()
         build.reset_counters()
         t0 = time.perf_counter()
-        logits = bundle.prefill(params, {"tokens": tokens})
+        logits = bundle.prefill(params, batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         chunked_attention.attention_chunked = plain
@@ -1959,7 +1995,7 @@ def three_prefills(torch, cfg, params, tokens, phase: str):
             kernel_launches = launches
         elif launches != 0:
             fail(f"the chunked prefill launched flash_attention {launches} times")
-        b = tokens.shape[0]
+        b = batch["tokens"].shape[0]
         if logits.shape != (b, 1, cfg.vocab) or not bool(torch.isfinite(logits).all()):
             fail(f"prefill ({label}) logits {tuple(logits.shape)} are not finite ({b}, 1, V)")
         out[label] = logits[:, -1]
@@ -1987,7 +2023,8 @@ def phase_lm_prefill(torch, cfg, params, rows):
           f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, vocab {cfg.vocab}), "
           f"{cfg.compute_dtype}, seeded random weights; one {s}-token prompt (prefill_32k with its "
           "global batch cut from 32 to 1)")
-    _, rows["flash_attention"]["launches"] = three_prefills(torch, cfg, params, tokens, "5")
+    _, rows["flash_attention"]["launches"] = three_prefills(torch, cfg, params,
+                                                            {"tokens": tokens}, "5")
 
 
 def serve_work(torch, cfg, params, mode, work, phase, **engine_kw):
@@ -2056,6 +2093,29 @@ def profile_steps(torch, label: str, fn, n_steps: int = 5) -> None:
     print(f"{label}, device time by operation (ms a step, share): "
           + "; ".join(f"{name[:90]} {t:.3f} ({t / busy_ms:.1%})"
                       for name, t in by_name.most_common(5)))
+
+
+def decode_step_peak(torch, cfg, params, batch: int, cache_len: int, phase: str = "6") -> int:
+    """The peak device memory of one eager slab decode step of ``batch``
+    rows over a ``cache_len`` cache half full, above what the step starts
+    from (its state and the weights), printed -> bytes."""
+    from repro_torch.models.lm import decode_step, init_decode_state
+
+    state = init_decode_state(cfg, batch, cache_len, "cuda")
+    state.pos.fill_(cache_len // 2)
+    state.kv.pos_buf[:, : cache_len // 2] = torch.arange(cache_len // 2, device="cuda")
+    feed = torch.zeros((batch, 1), dtype=torch.int64, device="cuda")
+    decode_step(params, cfg, state, feed)  # library workspaces, the allocator
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    decode_step(params, cfg, state, feed)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - before
+    print(f"[{phase}] {cfg.arch_id} decode step B={batch} at cache_len {cache_len} (eager): peak "
+          f"{extra / 2**20:.1f} MiB above the {before / 2**30:.3f} GiB it starts from (weights "
+          "and state)")
+    return extra
 
 
 def phase_lm_serving(torch, cfg, params):
@@ -2230,6 +2290,7 @@ def phase_lm_serving(torch, cfg, params):
     profile_steps(torch, "[6] decode step B=1 eager",
                   lambda: decode_step(params, cfg, states[1], feed))
     profile_steps(torch, "[6] decode step B=1 replay", lambda: g1(feed))
+    decode_step_peak(torch, cfg, params, SERVE_SLOTS, LONG_CACHE_LEN)
     return {"work": work, "tokens": tokens, "metrics": metrics, "delta_first": delta_first,
             "delta_mode": delta_mode, "first_logits": [ls for _, ls in pairs],
             "ref_logits": ref_logits}
@@ -2450,7 +2511,9 @@ FAMILY_ARCHS = ("granite-moe-3b-a800m", "mamba2-1.3b", "zamba2-1.2b")
 # The reference's own bounds for their parameter counts
 # (tests/test_models_smoke.py).
 FAMILY_PARAM_BOUNDS = {"granite-moe-3b-a800m": (2.5e9, 4.0e9), "mamba2-1.3b": (1.0e9, 1.7e9),
-                       "zamba2-1.2b": (1.0e9, 1.6e9)}
+                       "zamba2-1.2b": (1.0e9, 1.6e9), "llava-next-mistral-7b": (6.5e9, 8.0e9),
+                       "mixtral-8x22b": (130e9, 150e9), "nemotron-4-340b": (300e9, 380e9),
+                       "whisper-large-v3": (1.3e9, 2.2e9)}
 SSM_CHECK_LEN = 256  # (c): mamba2's chunked prefill against the recurrence
 SSM_CHECK_PROMPTS = SERVE_SLOTS
 # (c) in fp32 on a depth cut: the SSD and the recurrence are the same sums
@@ -2492,25 +2555,38 @@ def _named(node, prefix=""):
         yield prefix[:-1], node
 
 
-def family_params(torch, cfg):
-    """(a) Seeded random weights at full width on the card (drawn there),
-    their count within the reference's bounds."""
+def param_counts(torch, names, phase: str) -> None:
+    """(a) Each full config's parameter count, from its shapes alone (the
+    meta device: mixtral and nemotron do not fit the card), within the
+    reference's bounds."""
+    from repro_torch.configs import ARCHS
     from repro_torch.models import build_model
     from repro_torch.models.lm import param_count
+
+    for name in names:
+        cfg = ARCHS[name]
+        n = param_count(build_model(cfg).init(torch.Generator(), "meta"))
+        lo, hi = FAMILY_PARAM_BOUNDS[name]
+        print(f"[{phase}] {name} ({cfg.family}): {cfg.n_layers} layers at full depth, {n:,} "
+              f"parameters ({n / 1e9:.3f}e9; the reference's bounds {lo:.1e}..{hi:.1e})")
+        if not lo <= n <= hi:
+            fail(f"{name}: {n} parameters outside the reference's bounds {lo}..{hi}")
+
+
+def draw_params(torch, cfg, phase: str):
+    """Seeded random weights of ``cfg`` drawn on the card."""
+    from repro_torch.models import build_model
 
     t0 = time.perf_counter()
     params = build_model(cfg).init(torch.Generator(device="cuda").manual_seed(0), "cuda")
     torch.cuda.synchronize()
-    n = param_count(params)
     n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
-    fp32 = sorted({k for b in params["blocks"][:1] for k, t in _named(b) if t.dtype == torch.float32})
-    lo, hi = FAMILY_PARAM_BOUNDS[cfg.arch_id]
-    print(f"[6c] {cfg.arch_id} ({cfg.family}): {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"vocab {cfg.vocab}; {n:,} parameters ({n / 1e9:.3f}e9, the reference's bounds "
-          f"{lo:.1e}..{hi:.1e}), {n_bytes / 1e9:.3f} GB, fp32 leaves of a block {fp32}; drawn in "
-          f"{time.perf_counter() - t0:.1f} s")
-    if not lo <= n <= hi:
-        fail(f"{cfg.arch_id}: {n} parameters outside the reference's bounds {lo}..{hi}")
+    blocks = params.get("blocks") or params["dec_blocks"]
+    fp32 = sorted({k for k, t in _named(blocks[0]) if t.dtype == torch.float32})
+    print(f"[{phase}] {cfg.arch_id}: {cfg.n_layers} layers"
+          + (f" (+{cfg.n_encoder_layers} encoder layers)" if cfg.n_encoder_layers else "")
+          + f", d_model {cfg.d_model}, vocab {cfg.vocab}: {n_bytes / 1e9:.3f} GB of weights, "
+          f"fp32 leaves of a block {fp32}; drawn in {time.perf_counter() - t0:.1f} s")
     return params
 
 
@@ -2578,10 +2654,8 @@ def _cast(node, dtype):
 
 def _fp32_cut(torch, cfg, params, n_layers):
     """The first ``n_layers`` blocks of ``cfg`` and ``params`` in fp32."""
-    cut = replace(cfg, n_layers=n_layers, param_dtype="float32", compute_dtype="float32")
-    p32 = {k: v for k, v in params.items() if k != "blocks"}
-    p32["blocks"] = params["blocks"][:n_layers]
-    return cut, _cast(p32, torch.float32)
+    cut, p_cut = _depth_cut(cfg, params, n_layers)
+    return replace(cut, param_dtype="float32", compute_dtype="float32"), _cast(p_cut, torch.float32)
 
 
 def _no_drops(cfg):
@@ -2591,37 +2665,7 @@ def _no_drops(cfg):
     return replace(cfg, moe=replace(cfg.moe, capacity_factor=NO_DROP_CAPACITY))
 
 
-def family_prefill_32k(torch, cfg, params):
-    """(d) mamba2's prefill_32k prompt at batch 1, counters at 0 just before
-    -> the tensor-core flash launches, which must be none (granite and
-    zamba2 run theirs through ``three_prefills``)."""
-    from repro_torch.kernels import build
-    from repro_torch.kernels.flash_attention import ops as fa
-    from repro_torch.models import build_model
-
-    s = _prefill_len()
-    tokens = torch.randint(0, cfg.vocab, (1, s), generator=torch.Generator().manual_seed(5)).cuda()
-    bundle = build_model(cfg)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    build.reset_counters()
-    t0 = time.perf_counter()
-    logits = bundle.prefill(params, {"tokens": tokens})
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches, fp32 = fa.LAUNCHES["tensor_core"].value, fa.LAUNCHES["cuda_core"].value
-    print(f"[6c] {cfg.arch_id} prefill of {s} tokens, batch 1: {wall:.3f} s wall, peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; flash_attention launches: "
-          f"tensor-core route {launches} (want {attention_calls(cfg)}), fp32 route {fp32}")
-    if launches != attention_calls(cfg) or fp32:
-        fail(f"{cfg.arch_id}: the 32k prefill launched flash {launches} (tensor-core) and {fp32} "
-             f"(fp32) times, want {attention_calls(cfg)} and 0")
-    if logits.shape != (1, 1, cfg.vocab) or not bool(torch.isfinite(logits).all()):
-        fail(f"{cfg.arch_id}: 32k prefill logits {tuple(logits.shape)} are not finite (1, 1, V)")
-    return launches
-
-
-def family_reference(torch, cfg, params, work, gen_tokens):
+def family_reference(torch, cfg, params, work, gen_tokens, phase: str = "6c"):
     """(e) The references of the top-2 rule and the graph checks.
 
     delta_first: the largest first-token logit difference between the
@@ -2644,8 +2688,8 @@ def family_reference(torch, cfg, params, work, gen_tokens):
     hold_kernel = cfg.family != "ssm" and cfg.compute_dtype == "bfloat16"
     ctrl = build_model(replace(ctrl_cfg, attn_impl="chunked"))
     kern = build_model(ctrl_cfg)
-    g1 = DecodeGraph(bundle, params, 1, SERVE_CACHE_LEN, name="6c check B=1")
-    g8 = DecodeGraph(bundle, params, SERVE_SLOTS, SERVE_CACHE_LEN, name=f"6c check B={SERVE_SLOTS}")
+    g1 = DecodeGraph(bundle, params, 1, SERVE_CACHE_LEN, name=f"{phase} check B=1")
+    g8 = DecodeGraph(bundle, params, SERVE_SLOTS, SERVE_CACHE_LEN, name=f"{phase} check B={SERVE_SLOTS}")
     long = next((i for i, (_, n) in enumerate(work) if n >= 16), len(work) - 1)
     eager_checked = {0, long}
     ref, delta_first, delta_kernel, delta_mode = [], 0.0, 0.0, 0.0
@@ -2693,7 +2737,7 @@ def family_reference(torch, cfg, params, work, gen_tokens):
                          (pool.ssm_h, g8.state.ssm_h), (pool.ssm_conv, g8.state.ssm_conv)):
                 same(a, b)
         ref.append(logits)
-    print(f"[6c] {cfg.arch_id}: graphs vs eager steps at B=1 and B={SERVE_SLOTS}, teacher-forced "
+    print(f"[{phase}] {cfg.arch_id}: graphs vs eager steps at B=1 and B={SERVE_SLOTS}, teacher-forced "
           f"on requests {sorted(eager_checked)}: {unequal_} of {n_cmp} values unequal (logits"
           f"{', recurrent state' if cfg.ssm is not None else ''}); delta_first (control prefill "
           f"vs serving prefill) {delta_first:.4e}, kernel prefill vs serving prefill "
@@ -2708,7 +2752,7 @@ def family_reference(torch, cfg, params, work, gen_tokens):
             "delta_mode": delta_mode, "graphs": {1: g1, SERVE_SLOTS: g8}}
 
 
-def top2_rule(torch, label, tokens, gen, ref, delta) -> int:
+def top2_rule(torch, label, tokens, gen, ref, delta, phase: str = "6c") -> int:
     """Tokens that differ from generation's only where the reference's top-2
     gap at the first divergence is below 2 delta -> how many diverged."""
     import numpy as np
@@ -2719,7 +2763,7 @@ def top2_rule(torch, label, tokens, gen, ref, delta) -> int:
             continue
         j = int(np.flatnonzero(t != g)[0])
         gap = _top2_gap(torch, ref[i][j])
-        print(f"[6c] {label} request {i} diverges from generation at token {j} ({int(t[j])} vs "
+        print(f"[{phase}] {label} request {i} diverges from generation at token {j} ({int(t[j])} vs "
               f"{int(g[j])}), top-2 gap {gap:.4e}")
         if not gap < 2 * delta:
             fail(f"{label} request {i}: diverges at top-2 gap {gap} >= 2 delta ({delta})")
@@ -2738,7 +2782,7 @@ def _held_paged(cfg) -> str:
     return "paged" if cfg.moe is None else "paged, no drops"
 
 
-def family_tokens_held(torch, cfg, params, work, tokens, label):
+def family_tokens_held(torch, cfg, params, work, tokens, label, phase: str = "6c"):
     """(e) ``tokens`` (by mode) held to generation's: speculative exactly,
     continuous and paged by the top-2 rule with delta = max(delta_first,
     delta_mode) of ``family_reference`` -> its result, with "delta" and
@@ -2746,19 +2790,22 @@ def family_tokens_held(torch, cfg, params, work, tokens, label):
     delta the rule can hardly fail)."""
     import numpy as np
 
+    from repro_torch.runtime.serve_loop import speculative_supported
+
     gen = tokens["generation"]
     for i, (s_, g_) in enumerate(zip(tokens.get("speculative", gen), gen)):
         if not np.array_equal(s_, g_):
             fail(f"{cfg.arch_id}{label} request {i}: speculative tokens differ from generation's")
-    served = family_reference(torch, cfg, params, work, gen)
+    served = family_reference(torch, cfg, params, work, gen, phase)
     delta = max(served["delta_first"], served["delta_mode"])
     median = _median_top2_gap(torch, served["ref_logits"])
     held = {m: top2_rule(torch, f"{cfg.arch_id}{label} {m}", tokens[m], gen, served["ref_logits"],
-                         delta)
+                         delta, phase)
             for m in ("continuous", _held_paged(cfg)) if m in tokens}
-    spec = ("speculative" + ("" if cfg.family == "moe" else " (plain greedy)")
+    spec = ("speculative" + ("" if speculative_supported(cfg, SERVE_CACHE_LEN) else
+                             " (plain greedy)")
             + f" == generation for all {len(work)} requests; " if "speculative" in tokens else "")
-    print(f"[6c] {cfg.arch_id}{label} tokens: {spec}"
+    print(f"[{phase}] {cfg.arch_id}{label} tokens: {spec}"
           + ", ".join(f"{m} {n} of {len(work)} diverge" for m, n in held.items())
           + f", each at a near tie: delta {delta:.4e}, 2 delta {2 * delta:.4e} against the median "
           f"top-2 gap of the {sum(len(r) for r in served['ref_logits'])} reference logit rows "
@@ -2767,27 +2814,27 @@ def family_tokens_held(torch, cfg, params, work, tokens, label):
     return served
 
 
-def family_fp32_cut(torch, cfg, params, work):
+def family_fp32_cut(torch, cfg, params, work, n_layers, phase: str = "6c"):
     """(e) The token rule where it has teeth: generation, continuous and
     paged (an MoE's at NO_DROP_CAPACITY) on the family's first
     FAMILY_FP32_LAYERS blocks in fp32, held as at full width, and 2 delta
     must lie below the median top-2 gap."""
-    cut, p32 = _fp32_cut(torch, cfg, params, FAMILY_FP32_LAYERS[cfg.arch_id])
+    cut, p32 = _fp32_cut(torch, cfg, params, n_layers)
     tokens = {}
     for mode in ("generation", "continuous") + (() if cfg.family == "hybrid" else ("paged",)):
         key = _held_paged(cut) if mode == "paged" else mode
         kw = {"block_size": PAGED_BLOCK_SIZE, "prefill_chunk": PAGED_CHUNK} if mode == "paged" else {}
         tokens[key], _ = serve_work(torch, _no_drops(cut) if mode == "paged" else cut, p32, mode,
-                                    work, "6c fp32 cut", **kw)
+                                    work, f"{phase} fp32 cut", **kw)
     label = f" (fp32, first {cut.n_layers} blocks)"
-    served = family_tokens_held(torch, cut, p32, work, tokens, label)
+    served = family_tokens_held(torch, cut, p32, work, tokens, label, phase)
     served.pop("graphs")
     if not 2 * served["delta"] < served["median_gap"]:
         fail(f"{cfg.arch_id}{label}: 2 delta {2 * served['delta']} is not below the median top-2 "
              f"gap {served['median_gap']}: the token rule could hardly fail")
 
 
-def family_serving(torch, cfg, params):
+def family_serving(torch, cfg, params, fp32_layers, phase: str = "6c"):
     """(e) Every serving mode the family has, on phase 6's kind of work."""
     import numpy as np
 
@@ -2808,34 +2855,35 @@ def family_serving(torch, cfg, params):
             ServingEngine({cfg.arch_id: cfg}, mode="paged", cache_len=SERVE_CACHE_LEN,
                           device="cuda", params={cfg.arch_id: params})
         except ValueError as e:
-            print(f"[6c] {cfg.arch_id}: paged mode refused: {e}")
+            print(f"[{phase}] {cfg.arch_id}: paged mode refused: {e}")
         else:
             fail(f"{cfg.arch_id}: the paged mode was not refused")
     kw = {"paged": {"block_size": PAGED_BLOCK_SIZE, "prefill_chunk": PAGED_CHUNK},
           "speculative": {"spec_k": SPEC_K, "spec_draft_layers": cfg.n_layers // 2}}
     tokens, metrics = {}, {}
     for mode in modes:
-        tokens[mode], metrics[mode] = serve_work(torch, cfg, params, mode, work, "6c",
+        tokens[mode], metrics[mode] = serve_work(torch, cfg, params, mode, work, phase,
                                                  **kw.get(mode, {}))
     if cfg.moe is not None:
         # At the configured capacity a 16-position chunk drops pairs that
         # generation's token-by-token prompt keeps: a different result,
         # counted here; the same work at NO_DROP_CAPACITY is held instead.
         n_diff = sum(not np.array_equal(t, g) for t, g in zip(tokens["paged"], tokens["generation"]))
-        print(f"[6c] {cfg.arch_id}: paged at capacity factor {cfg.moe.capacity_factor}: {n_diff} "
+        print(f"[{phase}] {cfg.arch_id}: paged at capacity factor {cfg.moe.capacity_factor}: {n_diff} "
               f"of {len(work)} requests' tokens differ from generation's (not held); served "
               f"again at {NO_DROP_CAPACITY}, where no pair drops")
         tokens[_held_paged(cfg)], _ = serve_work(torch, _no_drops(cfg), params, "paged", work,
-                                                 "6c", **kw["paged"])
-    served = family_tokens_held(torch, cfg, params, work, tokens, "")
+                                                 phase, **kw["paged"])
+    served = family_tokens_held(torch, cfg, params, work, tokens, "", phase)
     if "paged" in tokens:
         if cfg.moe is not None:  # the graphs at the configured capacity, bit for bit
             g, _, _ = paged_graph_checks(torch, cfg, params, {**served, "first_logits": None},
-                                         "6c")
+                                         phase)
             del g
-        g, _, _ = paged_graph_checks(torch, _no_drops(cfg), params, served, "6c")
+        g, _, _ = paged_graph_checks(torch, _no_drops(cfg), params, served, phase)
         del g
-    family_fp32_cut(torch, cfg, params, work)
+    if fp32_layers:
+        family_fp32_cut(torch, cfg, params, work, fp32_layers, phase)
 
     # Decode steps eager against replay, B = 1 and B = 8, by the host's clock.
     graphs = served.pop("graphs")
@@ -2854,7 +2902,7 @@ def family_serving(torch, cfg, params):
             states[B] = decode_step(params, cfg, states[B], feed)[1]
 
         step_ms, _ = host_times_in_turns(torch, {"eager": eager, "replay": partial(graph, feed)}, 5)
-        print(f"[6c] {cfg.arch_id} decode step B={B} (host clock, ending in synchronize, mean of "
+        print(f"[{phase}] {cfg.arch_id} decode step B={B} (host clock, ending in synchronize, mean of "
               f"2 x 5 in turns): eager {step_ms['eager']:.3f} ms, replay {step_ms['replay']:.3f} ms")
 
     def row(mode):
@@ -2863,7 +2911,160 @@ def family_serving(torch, cfg, params):
                 f"p99 {m['ttft_p99_s'] * 1e3:.1f} ms, per-token p50 "
                 f"{m['per_token_p50_s'] * 1e3:.2f} p99 {m['per_token_p99_s'] * 1e3:.2f} ms")
 
-    print(f"[6c] {cfg.arch_id} serving: " + "; ".join(row(m) for m in modes))
+    print(f"[{phase}] {cfg.arch_id} serving: " + "; ".join(row(m) for m in modes))
+
+
+class FlashCalls:
+    """Inside ``with FlashCalls() as calls:`` every call of the flash
+    kernel's wrapper goes through to it, and ``calls.first`` keeps the
+    inputs of the first: the shape and values that the main path gives the
+    kernel, for a per-call check against the plain version afterwards
+    (whose launch the main path's counts never see)."""
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_attention import ops as fa
+
+        self._fa, self.kernel, self.first = fa, fa.flash_attention, None
+        fa.flash_attention = self
+        return self
+
+    def __call__(self, q, k, v, **kw):
+        if self.first is None:
+            self.first = (q, k, v, kw)
+        return self.kernel(q, k, v, **kw)
+
+    def __exit__(self, *exc):
+        self._fa.flash_attention = self.kernel
+
+
+def visible_pairs(s: int, causal: bool, window) -> int:
+    """(query, key) pairs that attention over ``s`` positions computes."""
+    if not causal:
+        return s * s
+    if window is None or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def plain_by_kv_head(torch, q, k, v, causal, window):
+    """``attention_chunked`` one kv head (and its query group) at a time:
+    the same function as over every head at once, with the scores of one
+    group in memory."""
+    from repro_torch.models.chunked_attention import attention_chunked
+
+    g = q.shape[1] // k.shape[1]
+    return torch.cat([attention_chunked(q[:, j * g:(j + 1) * g], k[:, j:j + 1], v[:, j:j + 1],
+                                        causal=causal, window=window)
+                      for j in range(k.shape[1])], dim=1)
+
+
+def flash_call_check(torch, label, call, phase: str, iters: int = 3) -> dict:
+    """The main path's first flash call held against the plain blocked loop
+    on the same inputs (the bf16 absolute and per-row bounds), then the
+    kernel and ``scaled_dot_product_attention`` on them timed with CUDA
+    events (a window is SDPA's boolean mask), beside the bound."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    q, k, v, kw = call
+    b, h, s, d = q.shape
+    hkv = k.shape[1]
+    causal, window = kw.get("causal", True), kw.get("window")
+    fa_kernel = fa.flash_attention
+    got = fa_kernel(q, k, v, causal=causal, window=window)
+    want = plain_by_kv_head(torch, q, k, v, causal, window)
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    row = float((diff.amax(-1) / want.float().abs().amax(-1).clamp_min(1e-30)).max())
+    del got, want, diff
+    ms = device_time_ms(torch, lambda: fa_kernel(q, k, v, causal=causal, window=window), iters,
+                        warmup=1)
+    # SDPA has no sliding window (a boolean mask would send it to a
+    # materialising path), so a windowed call has no library time.
+    lib_ms = None
+    if window is None:
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]):
+            lib_ms = device_time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=True), iters, warmup=1)
+    bound = bound_ms((2 * h + 2 * hkv) * b * s * d * q.element_size(),
+                     4 * b * h * d * visible_pairs(s, causal, window), PEAK_BF16_FLOPS)
+    shape = f"({b}, {h}, {hkv}, {s}, {d}) {str(q.dtype)[6:]} " + (
+        "non-causal" if not causal else "causal" + (f" window {window}" if window else ""))
+    print(f"[{phase}] {label}: the path's flash call {shape} vs attention_chunked: max abs err "
+          f"{err:.3e} (limit {FLASH_BF16_ATOL:.3e}), max row-relative err {row:.3e} (limit "
+          f"{FLASH_BF16_ROW_RTOL:.3e}); device time {ms:.4f} ms (CUDA events, {iters} calls), "
+          "scaled_dot_product_attention "
+          + ("none (no window)" if lib_ms is None else f"{lib_ms:.4f} ms")
+          + f", bound {bound[0]:.4f} ms by {bound[1]}")
+    if not (err < FLASH_BF16_ATOL and row < FLASH_BF16_ROW_RTOL):
+        fail(f"{label}: the flash kernel at {shape} differs from attention_chunked by {err} "
+             f"(row-relative {row})")
+    return {"shape": shape, "family": label, "ms": ms, "library_ms": lib_ms,
+            "bound_ms": bound[0], "bound_by": bound[1], "max_abs_err": err,
+            "max_row_rel_err": row}
+
+
+def main_path_run(torch, label, fn, want_launches: int, phase: str):
+    """``fn()`` with the counters at 0 just before, inside ``FlashCalls``:
+    the tensor-core route must launch ``want_launches`` times, the fp32
+    route never -> (result, launches, the first flash call)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_counters()
+    t0 = time.perf_counter()
+    with FlashCalls() as calls:
+        out = fn()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, fp32 = fa.LAUNCHES["tensor_core"].value, fa.LAUNCHES["cuda_core"].value
+    print(f"[{phase}] {label}: {wall:.3f} s wall, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; flash_attention launches: "
+          f"tensor-core route {launches} (want {want_launches}), fp32 route {fp32}")
+    if launches != want_launches or fp32:
+        fail(f"{label}: flash launched {launches} (tensor-core) and {fp32} (fp32) times, want "
+             f"{want_launches} and 0")
+    return out, launches, calls.first
+
+
+def _finite_logits(label, logits, shape) -> None:
+    if tuple(logits.shape) != shape or not bool(logits.isfinite().all()):
+        fail(f"{label}: logits {tuple(logits.shape)} are not finite {shape}")
+
+
+def _depth_cut(cfg, params, n_layers):
+    """The first ``n_layers`` blocks of ``cfg`` and ``params`` (the same
+    tensors)."""
+    return replace(cfg, n_layers=n_layers), {**params, "blocks": params["blocks"][:n_layers]}
+
+
+def family_prefill_checks(torch, cfg, params, batch, cut_layers, phase: str):
+    """The prefill_32k prompt at full depth through the kernel (the main
+    path's launches counted), the path's first flash call held against the
+    plain version at its own shape, and the whole-model kernel-vs-plain
+    logits rule of phase 5 on a depth cut of ``cut_layers`` blocks (none
+    if 0) -> (launches, the call's row of times)."""
+    from repro_torch.models import build_model
+
+    bundle = build_model(cfg)
+    logits, launches, call = main_path_run(
+        torch, f"{cfg.arch_id} prefill of {batch['tokens'].shape[1]} tokens"
+        + (f" after {batch['patches'].shape[1]} patches" if "patches" in batch else "")
+        + ", batch 1", lambda: bundle.prefill(params, batch), attention_calls(cfg), phase)
+    _finite_logits(cfg.arch_id, logits, (1, 1, cfg.vocab))
+    timed = None if call is None else flash_call_check(torch, cfg.arch_id, call, phase)
+    del call
+    if cut_layers:
+        cut, p_cut = _depth_cut(cfg, params, cut_layers)
+        print(f"[{phase}] {cfg.arch_id}: the kernel path against plain blocked attention on the "
+              f"first {cut_layers} blocks")
+        three_prefills(torch, cut, p_cut, batch, phase)
+    return launches, timed
 
 
 def phase_families(torch, rows, ended=lambda phase: None):
@@ -2873,26 +3074,253 @@ def phase_families(torch, rows, ended=lambda phase: None):
 
     from repro_torch.configs import ARCHS
 
-    rows["flash_attention"]["launches_phase_6c"] = {}
+    param_counts(torch, FAMILY_ARCHS, "6c")
+    flash = rows["flash_attention"]
+    flash["launches_phase_6c"] = {}
     for name in FAMILY_ARCHS:
         cfg = ARCHS[name]
-        params = family_params(torch, cfg)
+        params = draw_params(torch, cfg, "6c")
         if cfg.family == "ssm":
             ssm_prefill_checks(torch, cfg, params)
-            launches = family_prefill_32k(torch, cfg, params)
-        else:
-            s = _prefill_len()
-            tokens = torch.randint(0, cfg.vocab, (1, s),
-                                   generator=torch.Generator().manual_seed(5)).cuda()
-            print(f"[6c] {name}: one {s}-token prompt at batch 1, the kernel path against plain "
-                  "blocked attention")
-            _, launches = three_prefills(torch, cfg, params, tokens, "6c")
-        rows["flash_attention"]["launches_phase_6c"][name] = launches
-        family_serving(torch, cfg, params)
+        cut = 0 if cfg.family == "ssm" else FAMILY_FP32_LAYERS[name]
+        flash["launches_phase_6c"][name], _ = family_prefill_checks(
+            torch, cfg, params, {"tokens": _prompt(torch, cfg, _prefill_len())}, cut, "6c")
+        family_serving(torch, cfg, params, FAMILY_FP32_LAYERS[name])
         del params
         gc.collect()
         torch.cuda.empty_cache()
         ended(f"6c {name}")
+
+
+# ---------------------------------------------------------------------------
+# phase 6d: the last LM families (VLM, windowed MoE, squared-ReLU dense,
+# encoder-decoder) at full width
+# ---------------------------------------------------------------------------
+LAST_ARCHS = ("llava-next-mistral-7b", "mixtral-8x22b", "nemotron-4-340b", "whisper-large-v3")
+# Depth served on one 80 GB card: mixtral's 56 blocks (282 GB) cut to 4
+# (~21 GB with its embeddings), nemotron's 96 (682 GB) to 2 (~33 GB).
+LAST_DEPTH = {"mixtral-8x22b": 4, "nemotron-4-340b": 2}
+# (b) llava's whole-model kernel-vs-plain rule and its fp32 token cut.
+LAST_CUT_LAYERS = 2
+# (c) mixtral's rolling cache: a window shorter than the prompt, in fp32 on
+# one block, teacher-forced decode against forward at the reference's
+# 2e-3; no pair drops at capacity factor 8.
+ROLLING_WINDOW = 16
+ROLLING_LEN = 48
+ROLLING_ATOL = 2e-3
+# (e) whisper: the decoder's teacher-forced steps against decode_train.
+WHISPER_FORCED_LEN = 16
+WHISPER_FP32_LAYERS = 2
+WHISPER_FP32_ATOL = 2e-3
+
+
+def _prompt(torch, cfg, n: int, seed: int = 5):
+    return torch.randint(0, cfg.vocab, (1, n), generator=torch.Generator().manual_seed(seed)).cuda()
+
+
+def llava_checks(torch, cfg, params, timed) -> int:
+    """(b) llava at full depth: the 32k prefill of 2,880 seeded patches and
+    29,888 tokens (the kernel at D = 128 once a layer), its flash call held
+    per call, the phase-5 rule on a two-block cut, and the patches moving
+    the logits; every serving mode on phase 6's work."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.models import build_model
+    from repro_torch.models.zoo import input_specs
+
+    specs = input_specs(cfg, SHAPES["prefill_32k"], batch_override=1)
+    gen = torch.Generator().manual_seed(7)
+    patches = torch.randn(specs["patches"][0], generator=gen).to("cuda", torch.bfloat16)
+    batch = {"patches": patches, "tokens": _prompt(torch, cfg, specs["tokens"][0][1])}
+    launches, row = family_prefill_checks(torch, cfg, params, batch, LAST_CUT_LAYERS, "6d")
+    timed.append(row)
+    bundle = build_model(cfg)
+    base = bundle.prefill(params, batch)[0, -1]
+    moved = bundle.prefill(params, {**batch, "patches": patches * 2.0 + 1.0})[0, -1]
+    text = bundle.prefill(params, {"tokens": batch["tokens"]})[0, -1]
+    d_moved, d_text = float((moved - base).abs().max()), float((text - base).abs().max())
+    print(f"[6d] {cfg.arch_id}: last-position logits move by {d_moved:.4e} when the patches "
+          f"change and by {d_text:.4e} without them")
+    if not (d_moved > 1e-3 and d_text > 1e-3):
+        fail(f"{cfg.arch_id}: the patches do not move the logits ({d_moved}, {d_text})")
+    family_serving(torch, cfg, params, LAST_CUT_LAYERS, "6d")
+    return launches
+
+
+def rolling_cache_check(torch, cfg, params) -> None:
+    """(c) The rolling cache against forward: one block in fp32 with a
+    window of ROLLING_WINDOW over a ROLLING_LEN-token prompt (the cache a
+    ring of ROLLING_WINDOW slots), capacity factor 8, teacher-forced."""
+    from repro_torch.models import lm
+
+    cut, p32 = _fp32_cut(torch, cfg, params, 1)
+    cut = replace(_no_drops(cut), sliding_window=ROLLING_WINDOW)
+    toks = _prompt(torch, cut, ROLLING_LEN, seed=8)
+    full = lm.forward(p32, cut, {"tokens": toks})
+    st = lm.init_decode_state(cut, 1, SERVE_CACHE_LEN, "cuda")
+    outs = []
+    for t in range(ROLLING_LEN):
+        logits, st = lm.decode_step(p32, cut, st, toks[:, t : t + 1])
+        outs.append(logits)
+    d = float((torch.cat(outs, 1) - full).abs().max())
+    print(f"[6d] {cfg.arch_id}: rolling-cache decode ({st.kv.k.shape[3]} slots, window "
+          f"{ROLLING_WINDOW}, {ROLLING_LEN} tokens; fp32, one block) vs forward: max abs diff "
+          f"{d:.4e} (bound {ROLLING_ATOL})")
+    if st.kv.k.shape[3] != ROLLING_WINDOW or not d <= ROLLING_ATOL:
+        fail(f"{cfg.arch_id}: rolling-cache decode differs from forward by {d}")
+    del p32, full
+
+
+def mixtral_checks(torch, cfg, params, timed) -> int:
+    """(c) mixtral on a depth cut: the 32k prefill through the windowed
+    kernel, its call held; paged refused where the window is below the
+    cache; the rolling cache; every serving mode at cache_len 128."""
+    from repro_torch.runtime.serve_loop import ServingEngine
+
+    launches, row = family_prefill_checks(torch, cfg, params,
+                                          {"tokens": _prompt(torch, cfg, _prefill_len())}, 0, "6d")
+    timed.append(row)
+    long_cache = 2 * cfg.sliding_window
+    try:
+        ServingEngine({cfg.arch_id: cfg}, mode="paged", cache_len=long_cache, device="cuda",
+                      params={cfg.arch_id: params})
+    except ValueError as e:
+        print(f"[6d] {cfg.arch_id}: paged at cache_len {long_cache} refused: {e}")
+    else:
+        fail(f"{cfg.arch_id}: paged mode at cache_len {long_cache} was not refused")
+    rolling_cache_check(torch, cfg, params)
+    family_serving(torch, cfg, params, 0, "6d")
+    return launches
+
+
+def head_copy_check(torch, cfg, params) -> None:
+    """(d) One B = 1 decode step's peak memory above its start: no fp32
+    copy of the (vocab, d_model) head."""
+    extra = decode_step_peak(torch, cfg, params, 1, SERVE_CACHE_LEN, "6d")
+    copy = cfg.vocab * cfg.d_model * 4
+    print(f"[6d] {cfg.arch_id}: an fp32 copy of the head would be {copy / 1e9:.1f} GB")
+    if not extra < copy / 8:
+        fail(f"{cfg.arch_id}: a decode step takes {extra} bytes, an fp32 head copy is {copy}")
+
+
+def nemotron_checks(torch, cfg, params, timed) -> int:
+    """(d) nemotron on a depth cut: the 32k prefill through the D = 192
+    kernel, its call held; every serving mode; the decode step's memory."""
+    launches, row = family_prefill_checks(torch, cfg, params,
+                                          {"tokens": _prompt(torch, cfg, _prefill_len())}, 0, "6d")
+    timed.append(row)
+    head_copy_check(torch, cfg, params)
+    family_serving(torch, cfg, params, 0, "6d")
+    return launches
+
+
+def _forced_rule(torch, label, got, ref, ctrl) -> None:
+    """Teacher-forced logits ``got`` (S, V) against ``ref``: within
+    PREFILL_DIFF_FACTOR times the control difference ``ctrl`` (the plain
+    path's from ``ref``), argmaxes equal wherever ``ref``'s top-2 gap is at
+    least twice it."""
+    d, delta = float((got - ref).abs().max()), float((ctrl - ref).abs().max())
+    top = torch.topk(ref.float(), 2, dim=-1).values
+    gaps = top[:, 0] - top[:, 1]
+    differ = got.argmax(-1) != ref.argmax(-1)
+    print(f"[6d] {label}: max abs diff {d:.4e}, control (plain attention) {delta:.4e}; "
+          f"{int(differ.sum())} of {ref.shape[0]} argmaxes differ, the smallest top-2 gap among "
+          f"them {float(gaps[differ].min()) if differ.any() else float('nan'):.4e}")
+    if not d <= PREFILL_DIFF_FACTOR * delta:
+        fail(f"{label}: differs by {d}, more than {PREFILL_DIFF_FACTOR}x the control {delta}")
+    if bool((differ & (gaps >= 2 * delta)).any()):
+        fail(f"{label}: an argmax differs at a top-2 gap of at least 2 delta ({delta})")
+
+
+def whisper_checks(torch, cfg, params, timed) -> int:
+    """(e) whisper at full width: the encoder on 1,500 seeded frames (the
+    kernel non-causal at a ragged length, once a layer), the decoder on the
+    32k prompt (causal, once a layer; cross-attention plain), each path's
+    flash call held; teacher-forced decode steps against decode_train in
+    fp32 on a cut and by the top-2 rule in bf16; the engine's refusal."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.models import build_model, encdec
+    from repro_torch.models.zoo import input_specs
+    from repro_torch.runtime.serve_loop import ServingEngine
+
+    specs = input_specs(cfg, SHAPES["prefill_32k"], batch_override=1)
+    frames = torch.randn(specs["frames"][0], generator=torch.Generator().manual_seed(7)).to(
+        "cuda", torch.bfloat16)
+    enc, n_enc, call = main_path_run(torch, f"{cfg.arch_id} encode of {frames.shape[1]} frames",
+                                     lambda: encdec.encode(params, cfg, frames),
+                                     cfg.n_encoder_layers, "6d")
+    if enc.shape != frames.shape or not bool(enc.isfinite().all()):
+        fail(f"{cfg.arch_id}: encoder output {tuple(enc.shape)} is not finite")
+    timed.append(flash_call_check(torch, f"{cfg.arch_id} encoder", call, "6d"))
+    tokens = _prompt(torch, cfg, specs["tokens"][0][1])
+    logits, n_dec, call = main_path_run(
+        torch, f"{cfg.arch_id} decode_train of {tokens.shape[1]} tokens",
+        lambda: encdec.decode_train(params, cfg, tokens, enc), cfg.n_layers, "6d")
+    _finite_logits(cfg.arch_id, logits, (1, tokens.shape[1], cfg.vocab))
+    del logits
+    timed.append(flash_call_check(torch, f"{cfg.arch_id} decoder", call, "6d"))
+    del call, enc
+
+    # Teacher-forced steps: fp32 on a cut, bf16 at full width.
+    short = tokens[:, :WHISPER_FORCED_LEN]
+    n = WHISPER_FP32_LAYERS
+    cut = replace(cfg, n_layers=n, n_encoder_layers=n, param_dtype="float32",
+                  compute_dtype="float32")
+    p32 = _cast({**params, "enc_blocks": params["enc_blocks"][:n],
+                 "dec_blocks": params["dec_blocks"][:n]}, torch.float32)
+    for c, p, label in ((cut, p32, f"fp32, {n} + {n} layers"), (cfg, params, "bf16")):
+        bundle = build_model(c)
+        frames_c = frames.to(getattr(torch, c.compute_dtype))
+        full = encdec.decode_train(p, c, short, encdec.encode(p, c, frames_c))[0]
+        st = bundle.decode_init(p, {"frames": frames_c}, SERVE_CACHE_LEN)
+        steps = []
+        for t in range(short.shape[1]):
+            step, st = bundle.decode_step(p, st, short[:, t : t + 1])
+            steps.append(step[0])
+        steps = torch.cat(steps)
+        lbl = f"{cfg.arch_id} teacher-forced decode_step vs decode_train ({label})"
+        if c is cut:
+            d = float((steps - full).abs().max())
+            print(f"[6d] {lbl}: max abs diff {d:.4e} (bound {WHISPER_FP32_ATOL})")
+            if not d <= WHISPER_FP32_ATOL:
+                fail(f"{lbl}: {d} > {WHISPER_FP32_ATOL}")
+        else:
+            plain = replace(c, attn_impl="chunked")
+            ctrl = encdec.decode_train(p, plain, short, encdec.encode(p, plain, frames_c))[0]
+            _forced_rule(torch, lbl, full, steps, ctrl)
+    del p32
+    try:
+        ServingEngine({cfg.arch_id: cfg}, device="cuda", params={cfg.arch_id: params})
+    except ValueError as e:
+        print(f"[6d] {cfg.arch_id}: the serving engine refuses the family: {e}")
+    else:
+        fail(f"{cfg.arch_id}: the serving engine took the encoder-decoder")
+    return n_enc + n_dec
+
+
+def phase_last_families(torch, rows, ended=lambda phase: None):
+    """6d: llava-next-mistral-7b, mixtral-8x22b, nemotron-4-340b and
+    whisper-large-v3 at full width in bf16 (mixtral and nemotron on depth
+    cuts), one after another, each freed before the next."""
+    import gc
+
+    from repro_torch.configs import ARCHS
+
+    param_counts(torch, LAST_ARCHS, "6d")
+    flash = rows["flash_attention"]
+    flash["launches_phase_6d"], timed = {}, []
+    checks = {"llava-next-mistral-7b": llava_checks, "mixtral-8x22b": mixtral_checks,
+              "nemotron-4-340b": nemotron_checks, "whisper-large-v3": whisper_checks}
+    for name in LAST_ARCHS:
+        cfg = ARCHS[name]
+        if name in LAST_DEPTH:
+            cfg = replace(cfg, n_layers=LAST_DEPTH[name])
+        params = draw_params(torch, cfg, "6d")
+        flash["launches_phase_6d"][name] = checks[name](torch, cfg, params, timed)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        ended(f"6d {name}")
+    flash["calls_phase_6d"] = timed
 
 
 def phase_lm(torch, rows, ended=lambda phase: None):
@@ -2960,6 +3388,7 @@ def main() -> None:
     del res
     phase_lm(torch, rows, ended)
     phase_families(torch, rows, ended)
+    phase_last_families(torch, rows, ended)
     print(f"[7] all phases passed in {time.perf_counter() - t_start:.1f}s; seconds by phase "
           f"{phase_walls}")
     keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

@@ -1,10 +1,12 @@
 """Architecture and shape configuration of the port's LM zoo.
 
-The port serves the decoder-only dense, MoE, SSM (Mamba2) and hybrid
-(Mamba2 with one shared attention block) families with the SwiGLU or GELU
-MLP; the reference's encoder-decoder and VLM families, and its squared-ReLU
-MLP, wait (ROADMAP Queue 1 item 8), and asking for them raises
-:class:`NotImplementedError`.
+The port serves every family of the reference: the decoder-only dense,
+MoE, SSM (Mamba2), hybrid (Mamba2 with one shared attention block) and VLM
+(patch embeddings projected in front of the tokens) families, and the
+encoder-decoder (whisper) family, with the SwiGLU, squared-ReLU or GELU
+MLP.  What is still refused raises :class:`NotImplementedError` naming
+its ROADMAP item: the training path (item 9) and the sharded entry points
+(item 10).
 """
 from __future__ import annotations
 
@@ -17,13 +19,12 @@ from typing import Dict, Optional
 ATTN_IMPLS = ("kernel", "chunked", "xla")
 # The reference's names for the same three ("pallas" is its TPU kernel).
 _REFERENCE_ATTN_IMPL = {"pallas": "kernel", "chunked": "chunked", "xla": "xla"}
-# What a refusal names: the LM families and their parameter groups, the
-# training path, and the sharded per-cell entry points.
-NOT_PORTED = "not ported yet (ROADMAP Queue 1 item 8)"
+# What a refusal names: the training path and the sharded per-cell entry
+# points.
 NOT_TRAINED = "not ported yet (ROADMAP Queue 1 item 9)"
 NOT_SHARDED = "not ported yet (ROADMAP Queue 1 item 10)"
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
-MLPS = ("swiglu", "gelu")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "encdec")
+MLPS = ("swiglu", "sqrelu", "gelu")
 
 
 @dataclass(frozen=True)
@@ -52,7 +53,7 @@ class SSMConfig:
 
 @dataclass(frozen=True)
 class ArchConfig:
-    """One decoder-only architecture (``configs/<id>.py``)."""
+    """One architecture (``configs/<id>.py``)."""
 
     arch_id: str
     family: str  # one of FAMILIES
@@ -73,6 +74,12 @@ class ArchConfig:
     ssm: Optional[SSMConfig] = None
     # hybrid (zamba2): one *shared* attention block after every k core blocks
     shared_attn_every: Optional[int] = None
+    # encoder-decoder (whisper): encoder depth and length (precomputed frames)
+    n_encoder_layers: int = 0
+    n_frames: int = 0
+    # vlm (llava): patch embeddings projected in front of the tokens
+    n_patches: int = 0
+    d_vision: int = 0
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
     attn_impl: str = "kernel"  # one of ATTN_IMPLS
@@ -80,9 +87,9 @@ class ArchConfig:
 
     def __post_init__(self) -> None:
         if self.family not in FAMILIES:
-            raise NotImplementedError(f"family '{self.family}': {NOT_PORTED}")
+            raise ValueError(f"family '{self.family}' not in {FAMILIES}")
         if self.mlp not in MLPS:
-            raise NotImplementedError(f"mlp '{self.mlp}': {NOT_PORTED}")
+            raise ValueError(f"mlp '{self.mlp}' not in {MLPS}")
         if self.attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl '{self.attn_impl}' not in {ATTN_IMPLS}")
 
@@ -113,6 +120,12 @@ class ArchConfig:
                                      top_k=min(self.moe.top_k, 2), d_ff=64)
         if self.ssm is not None:
             changes["ssm"] = replace(self.ssm, d_state=16, head_dim=16, chunk=16)
+        if self.n_encoder_layers:
+            changes["n_encoder_layers"] = 2
+            changes["n_frames"] = 32
+        if self.n_patches:
+            changes["n_patches"] = 16
+            changes["d_vision"] = 32
         if self.shared_attn_every is not None:
             changes["shared_attn_every"] = 2
         return replace(self, **changes)
@@ -123,8 +136,6 @@ def arch_from_reference(ref) -> ArchConfig:
     attributes): same fields, the nested MoE and SSM configs converted, and
     the reference's ``attn_impl`` names mapped onto the port's ("pallas" ->
     "kernel")."""
-    if ref.family not in FAMILIES:
-        raise NotImplementedError(f"family '{ref.family}': {NOT_PORTED}")
     kw = {f.name: getattr(ref, f.name) for f in fields(ArchConfig)}
     kw["attn_impl"] = _REFERENCE_ATTN_IMPL[ref.attn_impl]
     for name, cls in (("moe", MoEConfig), ("ssm", SSMConfig)):

@@ -60,7 +60,9 @@
 //     cudaGetDriverEntryPoint (no -lcuda) and passed as __grid_constant__.
 // Shared memory: Q 128 x D plus two stages of K and V (128 x D each), in
 // bf16: 160 KB at D = 128, above the 48 KB static limit, so the launch sets
-// the dynamic limit.
+// the dynamic limit.  At D = 192 (nemotron's heads) a tile is three
+// 64-column panels, the ring has one stage (144 KB; two would need 240 KB),
+// and O += P V is wgmma m64n192k16.
 //
 // The fp32 design (flash_fwd_fp32_kernel): one block of 128 threads per
 // 64-row query tile, 64-key kv tiles in fp32 shared memory, a thread owning
@@ -284,7 +286,6 @@ namespace tc {
 
 constexpr int kBlockM = 128;           // query rows per block: two warpgroups of 64
 constexpr int kBlockN = 128;           // keys per kv tile
-constexpr int kStages = 2;             // K/V ring depth
 constexpr int kConsumerWarps = 8;
 constexpr int kThreads = 32 * kConsumerWarps + 32;  // + the producer warp
 constexpr float kLog2e = 1.4426950408889634f;
@@ -293,7 +294,7 @@ template <int D>
 struct Tile {
   // A row of a tile in shared memory is one swizzle span: 64 bf16 (128 B,
   // 128-byte swizzle) or, at D = 32, 32 bf16 (64 B, 64-byte swizzle); a
-  // D = 128 tile is two such 64-column panels side by side.
+  // D = 128 or 192 tile is two or three such 64-column panels side by side.
   static constexpr int kPanelCols = D < 64 ? D : 64;
   static constexpr int kRowBytes = 2 * kPanelCols;
   static constexpr int kPanels = D / kPanelCols;
@@ -301,6 +302,10 @@ struct Tile {
   static constexpr int kBytes = kPanels * kPanelBytes;     // Q, K or V tile: 128 x D
   static constexpr int kKSteps = kPanelCols / 16;          // k16 steps per panel
   static constexpr uint64_t kLayout = kRowBytes == 128 ? 1 : 2;  // wgmma: B128, B64
+  // K/V ring depth: two stages of 48 KB K and V tiles at D = 192 would
+  // exceed the 227 KB of shared memory a block may have, so D = 192 loads
+  // the next tile only once the current one is read.
+  static constexpr int kStages = D <= 128 ? 2 : 1;
   static constexpr int kSmem = (1 + 2 * kStages) * kBytes + 8 * (2 * kStages + 1) + 1024;
 };
 
@@ -428,7 +433,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t d
 }
 
 // O (64 x N, fp32) += P (64 x 16, bf16 registers) * V (16 x N, shared,
-// MN-major), for N = D = 32, 64, 128.
+// MN-major), for N = D = 32, 64, 128, 192.
 __device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4],
                                         uint64_t db) {
   asm volatile(
@@ -487,6 +492,41 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+__device__ __forceinline__ void wgmma_rs(float (&d)[96], const uint32_t (&a)[4],
+                                        uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
@@ -498,8 +538,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   // Swizzled tiles must start on 1024-byte boundaries (the swizzle's period).
   const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t bars = sQ + (1 + 2 * kStages) * T::kBytes;
-  const uint32_t q_full = bars + 8 * 2 * kStages;
+  const uint32_t bars = sQ + (1 + 2 * T::kStages) * T::kBytes;
+  const uint32_t q_full = bars + 8 * 2 * T::kStages;
 
   const int n_qtiles = (S + kBlockM - 1) / kBlockM;
   const int q0 = (n_qtiles - 1 - (int)blockIdx.x) * kBlockM;
@@ -516,9 +556,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < T::kStages; ++s) {
       mbar_init(bars + 8 * s, 1);                            // full: the producer + bytes
-      mbar_init(bars + 8 * (kStages + s), kConsumerWarps);   // empty: every consumer warp
+      mbar_init(bars + 8 * (T::kStages + s), kConsumerWarps);   // empty: every consumer warp
     }
     mbar_init(q_full, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -533,10 +573,10 @@ __global__ void __launch_bounds__(kThreads, 1)
         tma_load(sQ + p * T::kPanelBytes, &tq, q_full, p * T::kPanelCols, q0, bh);
       for (int kt = kt_lo; kt <= kt_hi; ++kt) {
         const int it = kt - kt_lo;
-        const int st = it % kStages;
+        const int st = it % T::kStages;
         const uint32_t sK = sQ + (1 + 2 * st) * T::kBytes;
         const uint32_t sV = sK + T::kBytes;
-        mbar_wait(bars + 8 * (kStages + st), ((it / kStages) & 1) ^ 1);
+        mbar_wait(bars + 8 * (T::kStages + st), ((it / T::kStages) & 1) ^ 1);
         mbar_expect_tx(bars + 8 * st, 2 * T::kBytes);
         for (int p = 0; p < T::kPanels; ++p) {
           tma_load(sK + p * T::kPanelBytes, &tk, bars + 8 * st, p * T::kPanelCols,
@@ -572,11 +612,11 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   for (int kt = kt_lo; kt <= kt_hi; ++kt) {
     const int it = kt - kt_lo;
-    const int st = it % kStages;
+    const int st = it % T::kStages;
     const int k0 = kt * kBlockN;
     const uint32_t sK = sQ + (1 + 2 * st) * T::kBytes;
     const uint32_t sV = sK + T::kBytes;
-    mbar_wait(bars + 8 * st, (it / kStages) & 1);
+    mbar_wait(bars + 8 * st, (it / T::kStages) & 1);
     __syncwarp();  // wgmma wants the warp converged
 
     // S = Q K^T over D in k16 steps.
@@ -655,7 +695,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     hold(acc);
     hold(p16);
     __syncwarp();
-    if (lane == 0) mbar_arrive(bars + 8 * (kStages + st));
+    if (lane == 0) mbar_arrive(bars + 8 * (T::kStages + st));
   }
 
   // out = acc / l, rows past S not stored.
@@ -739,12 +779,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
 typedef cudaError_t (*Launch)(const void*, const void*, const void*, void*, int, int, int,
                               int, int, int, float, cudaStream_t);
 
-int run(Launch d32, Launch d64, Launch d128, const void* q, const void* k, const void* v,
-        void* o, int B, int H, int Hkv, int S, int D, int causal, int window, float scale,
-        void* stream) {
+int run(Launch d32, Launch d64, Launch d128, Launch d192, const void* q, const void* k,
+        const void* v, void* o, int B, int H, int Hkv, int S, int D, int causal, int window,
+        float scale, void* stream) {
   if (B == 0 || H == 0 || S == 0) return 0;
   if (Hkv < 1 || H % Hkv != 0) return (int)cudaErrorInvalidValue;
-  Launch fn = D == 32 ? d32 : D == 64 ? d64 : D == 128 ? d128 : nullptr;
+  Launch fn = D == 32 ? d32 : D == 64 ? d64 : D == 128 ? d128 : D == 192 ? d192 : nullptr;
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   return (int)fn(q, k, v, o, B, H, Hkv, S, causal, window, scale,
                  static_cast<cudaStream_t>(stream));
@@ -762,16 +802,16 @@ extern "C" {
 int flash_attention_fwd_bf16(const void* q, const void* k, const void* v, void* o, int B,
                              int H, int Hkv, int S, int D, int causal, int window,
                              float scale, void* stream) {
-  return run(tc::launch<32>, tc::launch<64>, tc::launch<128>, q, k, v, o, B, H, Hkv, S, D,
-             causal, window, scale, stream);
+  return run(tc::launch<32>, tc::launch<64>, tc::launch<128>, tc::launch<192>, q, k, v, o, B,
+             H, Hkv, S, D, causal, window, scale, stream);
 }
 
 // fp32, on the CUDA cores.
 int flash_attention_fwd_fp32(const void* q, const void* k, const void* v, void* o, int B,
                              int H, int Hkv, int S, int D, int causal, int window,
                              float scale, void* stream) {
-  return run(fp32::launch<32>, fp32::launch<64>, fp32::launch<128>, q, k, v, o, B, H, Hkv, S,
-             D, causal, window, scale, stream);
+  return run(fp32::launch<32>, fp32::launch<64>, fp32::launch<128>, fp32::launch<192>, q, k,
+             v, o, B, H, Hkv, S, D, causal, window, scale, stream);
 }
 
 }  // extern "C"

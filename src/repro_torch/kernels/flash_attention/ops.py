@@ -22,7 +22,7 @@ from repro_torch.kernels import build
 from .ref import attention_ref
 
 IMPLS = ("kernel", "chunked", "xla")
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 192)
 # dtype -> (route, C entry point of csrc/flash_attention.cu)
 ROUTES = {
     torch.bfloat16: ("tensor_core", "flash_attention_fwd_bf16"),

@@ -2,9 +2,13 @@
 
 ``python -m repro_torch.launch.serve --arch qwen2-0.5b --requests 24``
 
-``--arch`` takes any id of ``repro_torch.configs.ARCHS``: the dense
-qwen2-0.5b, smollm-360m and phi4-mini-3.8b, the MoE granite-moe-3b-a800m,
-the SSM mamba2-1.3b and the hybrid zamba2-1.2b.
+``--arch`` takes any id of ``repro_torch.configs.ARCHS`` but the
+encoder-decoder whisper-large-v3, which the engine refuses (its decode
+state comes from audio frames, not a token prompt): the dense qwen2-0.5b,
+smollm-360m, phi4-mini-3.8b and nemotron-4-340b, the MoE
+granite-moe-3b-a800m and mixtral-8x22b, the VLM llava-next-mistral-7b
+(served on text alone, as the reference serves it), the SSM mamba2-1.3b
+and the hybrid zamba2-1.2b.
 
 Prefill and decode are two balancer tag families routed ``cost_aware``
 across replicas, and each decode server is a slot pool that admits

@@ -1,5 +1,6 @@
-"""The decoder-only LM zoo of the port: the dense, MoE, SSM and hybrid
-families (plain PyTorch, per-layer parameter dicts)."""
+"""The LM zoo of the port: the dense, MoE, SSM, hybrid and VLM decoder
+families and the encoder-decoder (plain PyTorch, per-layer parameter
+dicts)."""
 from .zoo import (
     ModelBundle,
     build_model,

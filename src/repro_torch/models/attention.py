@@ -10,18 +10,21 @@ place (it is the largest state a step touches).
 The paged path keeps one block pool for every slot
 (:class:`PagedKVCache`); :func:`decode_qkv` and :func:`chunk_qkv` are the
 write halves, :func:`attend_view` and :func:`attend_view_chunk` the read
-halves over a slot's identity-mapped view of its blocks.
+halves over a slot's identity-mapped view of its blocks.  The
+encoder-decoder's decoder attends over the encoder's output through
+:func:`cross_attention`, its keys and values computed once by
+:func:`encode_cross_kv`.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention.ops import attention as attn_op
 
-from .layers import Params, apply_rope, dense_init
+from .layers import Params, apply_rope, dense_init, matmul_f32
 
 
 def init_attention(gen: torch.Generator, cfg: ArchConfig, dtype, device) -> Params:
@@ -77,6 +80,32 @@ def attention_train(
     )  # (B, H, S, hd)
     o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.hd)
     return o @ params["wo"]
+
+
+def cross_attention(
+    params: Params,
+    x: torch.Tensor,  # (B, S, d) decoder stream
+    kv: Tuple[torch.Tensor, torch.Tensor],  # encoder keys and values (B, Hkv, F, hd)
+    cfg: ArchConfig,
+) -> torch.Tensor:
+    """Non-causal attention of the decoder's queries over the encoder's keys
+    and values -> (B, S, d).  Unequal query and key lengths go to the plain
+    blocked loop, as in the reference's dispatch."""
+    b, s, _ = x.shape
+    q = (x @ params["wq"]).reshape(b, s, cfg.n_heads, cfg.hd).transpose(1, 2)
+    k, v = kv
+    o = attn_op(q.contiguous(), k, v, causal=False, impl=cfg.attn_impl)
+    o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.hd)
+    return o @ params["wo"]
+
+
+def encode_cross_kv(params: Params, enc_out: torch.Tensor, cfg: ArchConfig):
+    """Cross-attention keys and values of the encoder output (B, F, d), once
+    -> k, v (B, Hkv, F, hd)."""
+    b, f, _ = enc_out.shape
+    k = (enc_out @ params["wk"]).reshape(b, f, cfg.n_kv_heads, cfg.hd).transpose(1, 2)
+    v = (enc_out @ params["wv"]).reshape(b, f, cfg.n_kv_heads, cfg.hd).transpose(1, 2)
+    return k.contiguous(), v.contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -158,12 +187,15 @@ def _attend(params: Params, q: torch.Tensor, view_k: torch.Tensor, view_v: torch
             valid: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """q (B, H, C, hd) against keys and values (B, Hkv, W, hd) under
     ``valid`` (B, C, W) -> (B, C, d).  Scores accumulate the input values
-    in fp32 (the reference's ``preferred_element_type=float32``); masked
-    scores are -1e30."""
+    in fp32 with an fp32 result and no fp32 copy of the keys
+    (:func:`~repro_torch.models.layers.matmul_f32`, the reference's
+    ``preferred_element_type=float32``); masked scores are -1e30."""
     b, _, c, hd = q.shape
-    group = cfg.n_heads // cfg.n_kv_heads
-    qg = q.reshape(b, cfg.n_kv_heads, group, c, hd)
-    scores = torch.einsum("bkgqd,bksd->bkgqs", qg.float(), view_k.float()) * (hd**-0.5)
+    hkv, w = cfg.n_kv_heads, view_k.shape[2]
+    group = cfg.n_heads // hkv
+    qg = q.reshape(b * hkv, group * c, hd)
+    kt = view_k.reshape(b * hkv, w, hd).transpose(1, 2)
+    scores = matmul_f32(qg, kt).reshape(b, hkv, group, c, w) * (hd**-0.5)
     scores = torch.where(valid[:, None, None], scores, -1e30)
     p = torch.softmax(scores, dim=-1)
     o = torch.einsum("bkgqs,bksd->bkgqd", p.to(view_v.dtype), view_v)

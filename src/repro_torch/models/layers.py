@@ -64,7 +64,26 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return torch.stack([y1, y2], dim=-1).reshape(x.shape).to(x.dtype)
 
 
-# -- MLP variants (SwiGLU and GELU; squared ReLU is not ported) ----------------
+# -- products accumulated in fp32 ------------------------------------------------
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` accumulated in fp32 with an fp32 result, for (..., M, K) x
+    (K, N) or batched (P, M, K) x (P, K, N): the reference's
+    ``preferred_element_type=float32``.
+
+    bf16 operands on the card go to cuBLAS with an fp32 output
+    (``out_dtype``), so neither operand is copied to fp32: a bf16 x bf16
+    product is exact in fp32, and only the order of the sums can differ
+    from the fp32 product of the upcast operands, which is what the CPU
+    (which has no such kernel) computes."""
+    if not (a.dtype == b.dtype == torch.bfloat16 and a.device.type == "cuda"):
+        return a.float() @ b.float()  # .float() of an fp32 tensor is itself
+    if b.ndim == 2:
+        out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
+        return out.reshape(*a.shape[:-1], b.shape[-1])
+    return torch.bmm(a, b, out_dtype=torch.float32)
+
+
+# -- MLP variants --------------------------------------------------------------
 def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, kind: str, dtype, device) -> Params:
     if kind == "swiglu":
         return {
@@ -72,7 +91,7 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, kind: str, dtype, de
             "w_up": dense_init(gen, d_model, d_ff, dtype, device),
             "w_down": dense_init(gen, d_ff, d_model, dtype, device),
         }
-    if kind == "gelu":
+    if kind in ("sqrelu", "gelu"):
         return {
             "w_up": dense_init(gen, d_model, d_ff, dtype, device),
             "w_down": dense_init(gen, d_ff, d_model, dtype, device),
@@ -89,6 +108,8 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 def mlp(params: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
     if kind == "swiglu":
         h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
+    elif kind == "sqrelu":
+        h = torch.square(F.relu(x @ params["w_up"]))
     elif kind == "gelu":
         h = gelu(x @ params["w_up"])
     else:
@@ -97,5 +118,6 @@ def mlp(params: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
 
 
 def unembed(x: torch.Tensor, w_embed: torch.Tensor) -> torch.Tensor:
-    """Tied unembedding: (..., d) x (V, d) -> (..., V) in fp32."""
-    return x.float() @ w_embed.float().T
+    """Tied unembedding: (..., d) x (V, d) -> (..., V) in fp32, with no fp32
+    copy of the embedding (:func:`matmul_f32`)."""
+    return matmul_f32(x, w_embed.T)

@@ -1,5 +1,5 @@
-"""Decoder-only LM of the dense, MoE, SSM and hybrid families: parameters,
-forward, prefill and decode.
+"""Decoder-only LM of the dense, MoE, SSM, hybrid and VLM families:
+parameters, forward, prefill and decode.
 
 The reference's ``models/lm.py`` for one card: a Python loop over a list of
 per-layer parameter dicts where the reference scans a stacked tree, no
@@ -8,7 +8,10 @@ blocks in one list too (the reference's ``blocks`` groups, then
 ``blocks_tail``) and applies the single parameter-tied ``shared`` attention
 block after layers ``every - 1``, ``2 every - 1``, ..., each invocation with
 a KV cache of its own.  An MoE block calls the MoE FFN where a dense block
-calls its MLP.
+calls its MLP.  The VLM (llava) is the dense model with a ``projector``
+that maps precomputed patch embeddings (B, n_patches, d_vision) into the
+stream in front of the tokens (:func:`_embed_inputs`); it serves text
+only, as the reference does.
 
 The decode state carries one position per batch row (see
 :mod:`repro_torch.models.attention`), so the continuous-batching pool is
@@ -18,9 +21,8 @@ them as they are at replay.  The paged functions keep one block pool for
 every slot and per-slot block tables, all on the device; for the SSM
 family a "paged" pool is the slot-stacked recurrent state with no blocks,
 and the hybrid's caches are refused there, as in the reference.  The
-encoder-decoder and VLM families wait (ROADMAP Queue 1 item 8):
-:class:`~repro_torch.configs.base.ArchConfig` refuses them; the training
-loss waits with item 9.
+encoder-decoder family is :mod:`repro_torch.models.encdec`; the training
+loss waits (ROADMAP Queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -45,7 +47,18 @@ from .attention import (
     init_kv_cache,
     init_paged_kv_cache,
 )
-from .layers import Params, dense_init, dtype_of, embed_init, init_mlp, mlp, rmsnorm, unembed
+from .layers import (
+    Params,
+    dense_init,
+    dtype_of,
+    embed_init,
+    gelu,
+    init_mlp,
+    matmul_f32,
+    mlp,
+    rmsnorm,
+    unembed,
+)
 from .ssm import init_mamba, mamba_block, mamba_decode_step
 
 MAMBA_FAMILIES = ("ssm", "hybrid")
@@ -76,8 +89,8 @@ def _init_mamba_block(gen: torch.Generator, cfg: ArchConfig, dtype, device) -> P
 
 def init_params(gen: torch.Generator, cfg: ArchConfig, device="cuda") -> Params:
     """Random parameters from ``gen``: ``{"blocks": [per-layer dict, ...],
-    "embed", "ln_f"[, "unembed"][, "shared"]}`` with the reference's leaf
-    names; ``device="meta"`` gives the shapes only."""
+    "embed", "ln_f"[, "unembed"][, "shared"][, "projector"]}`` with the
+    reference's leaf names; ``device="meta"`` gives the shapes only."""
     dtype = dtype_of(cfg.param_dtype)
     block = _init_mamba_block if cfg.family in MAMBA_FAMILIES else _init_attn_block
     params: Params = {"blocks": [block(gen, cfg, dtype, device) for _ in range(cfg.n_layers)]}
@@ -89,6 +102,11 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, device="cuda") -> Params:
     params["ln_f"] = torch.ones((cfg.d_model,), dtype=dtype, device=device)
     if not cfg.tie_embeddings:
         params["unembed"] = dense_init(gen, cfg.d_model, cfg.vocab, dtype, device)
+    if cfg.family == "vlm":
+        params["projector"] = {
+            "w1": dense_init(gen, cfg.d_vision, cfg.d_model, dtype, device),
+            "w2": dense_init(gen, cfg.d_model, cfg.d_model, dtype, device),
+        }
     return params
 
 
@@ -129,16 +147,30 @@ def _apply_attn_block(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tens
 
 
 def _head(params: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
-    """Final norm and (tied or separate) unembedding -> fp32 logits."""
+    """Final norm and (tied or separate) unembedding -> fp32 logits, with no
+    fp32 copy of the (un)embedding (:func:`matmul_f32`)."""
     x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
     if cfg.tie_embeddings:
         return unembed(x, params["embed"])
-    return x.float() @ params["unembed"].float()
+    return matmul_f32(x, params["unembed"])
 
 
-def _trunk(params: Params, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
-    """Embedding and every block -> the final residual stream (B, S, d)."""
-    x = params["embed"][tokens].to(dtype_of(cfg.compute_dtype))
+def _embed_inputs(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]):
+    """Tokens, and for the VLM the projected patch embeddings in front of
+    them -> the (B, S, d) stream in the compute dtype."""
+    parts = []
+    if cfg.family == "vlm" and "patches" in batch:
+        pr = params["projector"]
+        parts.append(gelu(batch["patches"].to(pr["w1"].dtype) @ pr["w1"]) @ pr["w2"])
+    if "tokens" in batch:
+        parts.append(params["embed"][batch["tokens"]])
+    x = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
+    return x.to(dtype_of(cfg.compute_dtype))
+
+
+def _trunk(params: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    """Every block over the embedded stream -> the final residual stream
+    (B, S, d)."""
     for layer, p in enumerate(params["blocks"]):
         if cfg.family in MAMBA_FAMILIES:
             x = x + mamba_block(p["mamba"], rmsnorm(x, p["ln1"], cfg.norm_eps), cfg)
@@ -150,8 +182,9 @@ def _trunk(params: Params, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tenso
 
 
 def forward(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """-> logits (B, S, V) in fp32, every position."""
-    return _head(params, cfg, _trunk(params, cfg, batch["tokens"]))
+    """-> logits (B, S, V) in fp32, every position (the VLM's patches
+    first)."""
+    return _head(params, cfg, _trunk(params, cfg, _embed_inputs(params, cfg, batch)))
 
 
 def prefill(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -159,7 +192,8 @@ def prefill(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]) -> 
 
     The head runs on the last position only: the logits of every position
     would take 19.9 GB a sequence at 32k tokens and qwen2's vocabulary."""
-    return _head(params, cfg, _trunk(params, cfg, batch["tokens"])[:, -1:])
+    x = _trunk(params, cfg, _embed_inputs(params, cfg, batch))
+    return _head(params, cfg, x[:, -1:])
 
 
 # ---------------------------------------------------------------------------
@@ -321,12 +355,13 @@ class PagedDecodeState(NamedTuple):
 def check_paged_support(cfg: ArchConfig, cache_len: int) -> None:
     """Raise if ``cfg`` cannot serve through the paged path.
 
-    The hybrid's caches are not block-structured.  A slot's view is a
+    The hybrid's and the encoder-decoder's caches are not
+    block-structured.  A slot's view is a
     never-wrapping identity map of its positions, so the slab cache it
     stands in for must never wrap either: a sliding window shorter than
     ``cache_len`` makes the slab cache a ring whose layout (and summation
     order) differs."""
-    if cfg.family not in ("dense", "moe", "ssm"):
+    if cfg.family not in ("dense", "moe", "vlm", "ssm"):
         raise ValueError(
             f"paged decoding unsupported for family {cfg.family!r} "
             "(hybrid/encdec caches are not block-structured)"

@@ -1,6 +1,6 @@
 """Model zoo: serving entry points, input shapes and weights carried across
-from the reference for the decoder-only families (dense, MoE, SSM,
-hybrid)."""
+from the reference for every family (dense, MoE, SSM, hybrid, VLM and the
+encoder-decoder)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -9,9 +9,9 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import FAMILIES, NOT_PORTED, ArchConfig, ShapeConfig
+from repro_torch.configs.base import ArchConfig, ShapeConfig
 
-from . import lm
+from . import encdec, lm
 from .attention import PagedKVCache
 from .layers import Params, dtype_of
 
@@ -27,12 +27,20 @@ class ModelBundle:
     decode_step: Callable  # (params, state, tokens (B, 1)) -> (logits, state)
     # (params, tokens (B, S), cache_len) -> (last logits (B, 1, V), state):
     # the prefill that also yields the decode state a slot continues from.
-    prefill_state: Callable
+    # None for the encoder-decoder, whose decode state comes from the
+    # encoder's pass over the frames (decode_init).
+    prefill_state: Optional[Callable] = None
 
 
 def build_model(cfg: ArchConfig) -> ModelBundle:
-    if cfg.family not in FAMILIES:
-        raise NotImplementedError(f"family '{cfg.family}': {NOT_PORTED}")
+    if cfg.family == "encdec":
+        return ModelBundle(
+            cfg=cfg,
+            init=lambda gen, device="cuda": encdec.init_params(gen, cfg, device),
+            prefill=lambda p, b: encdec.prefill(p, cfg, b),
+            decode_init=lambda p, b, s: encdec.init_decode_state(p, cfg, b["frames"], s),
+            decode_step=lambda p, st, t: encdec.decode_step(p, cfg, st, t),
+        )
     return ModelBundle(
         cfg=cfg,
         init=lambda gen, device="cuda": lm.init_params(gen, cfg, device),
@@ -49,16 +57,26 @@ def input_specs(
     cfg: ArchConfig, shape: ShapeConfig, *, batch_override: Optional[int] = None
 ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
     """Model inputs of one (arch x shape) cell as ``{name: (shape, dtype)}``:
-    the token batch for train and prefill, the (B, 1) next tokens for decode
-    (the KV cache comes from ``decode_init``)."""
-    if cfg.family not in FAMILIES:
-        raise NotImplementedError(f"family '{cfg.family}': {NOT_PORTED}")
+    the token batch for train and prefill, with the encoder-decoder's frame
+    embeddings or the VLM's patch embeddings (which take ``n_patches`` of
+    the sequence), and the (B, 1) next tokens for decode (the KV cache
+    comes from ``decode_init``)."""
     b = batch_override or shape.global_batch
     if shape.kind == "decode":
         return {"tokens": ((b, 1), torch.int64)}
-    specs = {"tokens": ((b, shape.seq_len), torch.int64)}
+    emb = dtype_of(cfg.compute_dtype)
+    specs = {}
+    n_text = shape.seq_len
+    if cfg.family == "encdec":
+        specs["frames"] = ((b, cfg.n_frames, cfg.d_model), emb)
+    elif cfg.family == "vlm":
+        n_text = shape.seq_len - cfg.n_patches
+        if n_text < 1:
+            raise ValueError(f"seq_len {shape.seq_len} must exceed the {cfg.n_patches} patches")
+        specs["patches"] = ((b, cfg.n_patches, cfg.d_vision), emb)
+    specs["tokens"] = ((b, n_text), torch.int64)
     if shape.kind == "train":
-        specs["labels"] = ((b, shape.seq_len), torch.int64)
+        specs["labels"] = ((b, n_text), torch.int64)
     return specs
 
 
@@ -102,17 +120,26 @@ def _flat_groups(tree: Dict, n_groups: int) -> Dict:
     return a.reshape((a.shape[0] * a.shape[1],) + a.shape[2:])
 
 
+# The reference's parameter groups: per-layer stacks, and the rest.
+_LAYER_GROUPS = ("blocks", "blocks_tail", "enc_blocks", "dec_blocks")
+_GROUPS = (*_LAYER_GROUPS, "shared", "embed", "ln_f", "unembed", "projector", "ln_enc")
+
+
 def params_from_reference(tree: Dict, cfg: ArchConfig, device="cuda") -> Params:
-    """The port's parameters from the reference's ``lm.init_params`` tree
-    (numpy arrays; the layers stacked on axis 0), each leaf in its own
-    dtype.  The hybrid's grouped ``blocks`` (n_groups, every, ...) and its
-    ``blocks_tail`` become one list of layers; ``shared`` stays one set of
-    tensors."""
-    extra = sorted(set(tree) - {"blocks", "blocks_tail", "shared", "embed", "ln_f", "unembed"})
+    """The port's parameters from the reference's ``lm.init_params`` or
+    ``encdec.init_params`` tree (numpy arrays; the layers stacked on axis
+    0), each leaf in its own dtype.  The hybrid's grouped ``blocks``
+    (n_groups, every, ...) and its ``blocks_tail`` become one list of
+    layers; ``shared`` and the VLM's ``projector`` stay one set of tensors;
+    the encoder-decoder's ``enc_blocks`` and ``dec_blocks`` become lists."""
+    extra = sorted(set(tree) - set(_GROUPS))
     if extra:
-        raise NotImplementedError(f"parameter groups {extra}: {NOT_PORTED}")
-    params = {k: _convert(v, device) for k, v in tree.items()
-              if k not in ("blocks", "blocks_tail")}
+        raise ValueError(f"unknown parameter groups {extra}")
+    params = {k: _convert(v, device) for k, v in tree.items() if k not in _LAYER_GROUPS}
+    if cfg.family == "encdec":
+        for group, n in (("enc_blocks", cfg.n_encoder_layers), ("dec_blocks", cfg.n_layers)):
+            params[group] = [_convert(b, device) for b in _per_layer(tree[group], n)]
+        return params
     if cfg.shared_attn_every:
         n_groups = cfg.n_layers // cfg.shared_attn_every
         layers = _per_layer(_flat_groups(tree["blocks"], n_groups), n_groups * cfg.shared_attn_every)

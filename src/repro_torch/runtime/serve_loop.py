@@ -136,6 +136,13 @@ class DecodeGraph:
         )
 
 
+def _require_prefill_state(bundle: ModelBundle) -> None:
+    """Servers prefill from tokens alone: the encoder-decoder, whose decode
+    state comes from its frames, is refused with the reference's message."""
+    if bundle.prefill_state is None:
+        raise ValueError(f"family '{bundle.cfg.family}' has no prefill_state")
+
+
 def make_prefill_fn(bundle: ModelBundle, params, cache_len: int) -> Callable[[Tuple], DecodeHandoff]:
     """Request handler for a ``prefill:<variant>`` server.
 
@@ -145,6 +152,7 @@ def make_prefill_fn(bundle: ModelBundle, params, cache_len: int) -> Callable[[Tu
     :class:`DecodeHandoff` carries a snapshot of the state and the first
     greedy token to a decode slot.
     """
+    _require_prefill_state(bundle)
     device = _device_of(params)
     graph: Optional[DecodeGraph] = None
 
@@ -353,7 +361,7 @@ def speculative_supported(cfg: ArchConfig, cache_len: int) -> bool:
     """Self-speculative decoding needs a KV family (the verify step rewinds
     ``pos`` and relies on the stale entries past it being masked; a
     recurrent state cannot rewind) and a cache that never wraps."""
-    return cfg.family in ("dense", "moe") and (
+    return cfg.family in ("dense", "moe", "vlm") and (
         cfg.sliding_window is None or cfg.sliding_window >= cache_len)
 
 
@@ -484,6 +492,7 @@ def make_generate_fn(
     B = 1 decode loop; the request holds the server for its whole
     generation.  Prompt and generation replay the server's B = 1
     :class:`DecodeGraph`, each new token fed back on the card."""
+    _require_prefill_state(bundle)
     device = _device_of(params)
     graph: Optional[DecodeGraph] = None
 

@@ -1,14 +1,18 @@
-"""The port's MoE, SSM and hybrid LM families against the JAX reference's,
-on the same weights.
+"""The port's MoE, SSM and hybrid LM families, and the dense nemotron with
+its squared-ReLU MLP, against the JAX reference's, on the same weights.
 
-Reduced granite-moe-3b-a800m, mamba2-1.3b and zamba2-1.2b in fp32: the
+Reduced granite-moe-3b-a800m, mixtral-8x22b, mamba2-1.3b, zamba2-1.2b and
+nemotron-4-340b in fp32: the
 reference's parameters (``lm.init_params``) carried across with
 ``params_from_reference``, the same numpy tokens through both, the
 reference with ``attn_impl="pallas"`` (its flash kernel in interpret mode,
 as its own tests run it) and the port with ``"kernel"`` (the plain version
 on the CPU).  Logits at atol 1e-4, the dense models' bound (PERF.md);
 teacher-forced decode against the port's own forward at 2e-3, the
-reference's bound for the same check (``tests/test_models_smoke.py``).
+reference's bound for the same check (``tests/test_models_smoke.py``),
+also through mixtral's rolling cache with a window shorter than the
+prompt.  The fp32-copy repairs of the decode scores and the head are held
+to the formulas they replaced.
 """
 import dataclasses
 
@@ -27,12 +31,14 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.launch.serve import main as serve_main
 from repro_torch.models import build_model, lm, paged_state_from_reference, params_from_reference
 
-FAMILIES = ["granite-moe-3b-a800m", "mamba2-1.3b", "zamba2-1.2b"]
+FAMILIES = ["granite-moe-3b-a800m", "mamba2-1.3b", "zamba2-1.2b", "mixtral-8x22b",
+            "nemotron-4-340b"]
 ATOL = 1e-4
 CACHE_LEN = 24
 # The reference's own bounds for the full configs (tests/test_models_smoke.py).
 PARAM_BOUNDS = {"granite-moe-3b-a800m": (2.5e9, 4.0e9), "mamba2-1.3b": (1.0e9, 1.7e9),
-                "zamba2-1.2b": (1.0e9, 1.6e9), "phi4-mini-3.8b": (3.0e9, 4.8e9)}
+                "zamba2-1.2b": (1.0e9, 1.6e9), "phi4-mini-3.8b": (3.0e9, 4.8e9),
+                "mixtral-8x22b": (130e9, 150e9), "nemotron-4-340b": (300e9, 380e9)}
 
 
 def _t(x) -> torch.Tensor:
@@ -278,18 +284,34 @@ def test_full_parameter_counts(name):
 
 
 def test_families_registered_and_the_rest_refused():
-    assert set(FAMILIES) | {"phi4-mini-3.8b"} <= set(ARCHS)
+    """Every reference architecture is registered; what stays refused is
+    serving the encoder-decoder (no token-only prefill, the reference's
+    message), its paged and the hybrid's paged mode, the training loss
+    (item 9), and families or MLPs that no config has."""
+    assert set(ARCHS) == set(JAX_ARCHS)
     for family in ("encdec", "vlm"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            ArchConfig(arch_id="m", family=family, n_layers=1, d_model=8, n_heads=1,
-                       n_kv_heads=1, d_ff=8, vocab=8)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        dataclasses.replace(ARCHS["phi4-mini-3.8b"], mlp="sqrelu")
+        ArchConfig(arch_id="m", family=family, n_layers=1, d_model=8, n_heads=1,
+                   n_kv_heads=1, d_ff=8, vocab=8)
+    with pytest.raises(ValueError, match="family 'retnet'"):
+        ArchConfig(arch_id="m", family="retnet", n_layers=1, d_model=8, n_heads=1,
+                   n_kv_heads=1, d_ff=8, vocab=8)
+    with pytest.raises(ValueError, match="mlp 'geglu'"):
+        dataclasses.replace(ARCHS["phi4-mini-3.8b"], mlp="geglu")
+    assert dataclasses.replace(ARCHS["phi4-mini-3.8b"], mlp="sqrelu").mlp == "sqrelu"
     for name in ("whisper-large-v3", "llava-next-mistral-7b", "nemotron-4-340b"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            arch_from_reference(JAX_ARCHS[name])
-        with pytest.raises(NotImplementedError, match="item 8"):
-            serve_main(["--arch", name, "--device", "cpu"])
+        assert arch_from_reference(JAX_ARCHS[name]) == dataclasses.replace(
+            ARCHS[name], attn_impl="chunked")
+    for mode in ("continuous", "generation", "speculative"):
+        with pytest.raises(ValueError, match="family 'encdec' has no prefill_state"):
+            serve_main(["--arch", "whisper-large-v3", "--device", "cpu", "--mode", mode])
+    for name in ("whisper-large-v3", "zamba2-1.2b"):
+        with pytest.raises(ValueError, match="hybrid/encdec caches are not block-structured"):
+            serve_main(["--arch", name, "--device", "cpu", "--mode", "paged"])
+    from repro_torch.models import encdec
+
+    for module in (lm, encdec):
+        with pytest.raises(NotImplementedError, match="item 9"):
+            module.lm_loss
     reduced = ARCHS["zamba2-1.2b"].reduced()
     assert (reduced.n_layers, reduced.shared_attn_every, reduced.ssm.d_state,
             reduced.ssm.head_dim, reduced.ssm.chunk) == (4, 2, 16, 16, 16)
@@ -302,3 +324,120 @@ def test_serve_cli_takes_the_family(name, capsys):
     m = serve_main(["--arch", name, "--device", "cpu", "--requests", "3", "--slots", "2",
                     "--cache-len", "80"])
     assert m["n_requests"] == 3 and "tok/s" in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# nemotron's squared ReLU, mixtral's rolling cache
+# ---------------------------------------------------------------------------
+def test_sqrelu_mlp_matches_reference():
+    from repro.models import layers as jax_layers
+    from repro_torch.models import layers
+
+    rng = np.random.default_rng(8)
+    x = (rng.normal(size=(2, 5, 32)) * 0.5).astype(np.float32)
+    p = {"w_up": (rng.normal(size=(32, 48)) / np.sqrt(32)).astype(np.float32),
+         "w_down": (rng.normal(size=(48, 32)) / np.sqrt(48)).astype(np.float32)}
+    got = layers.mlp({k: _t(v) for k, v in p.items()}, _t(x), "sqrelu")
+    want = jax_layers.mlp({k: jnp.asarray(v) for k, v in p.items()}, jnp.asarray(x), "sqrelu")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-6)
+    own = layers.init_mlp(torch.Generator().manual_seed(0), 32, 48, "sqrelu", torch.float32, "cpu")
+    assert set(own) == {"w_up", "w_down"}
+
+
+def _windowed(cfg):
+    """Mixtral with a window of 8 and capacity_factor 8 (the reference's own
+    rolling-cache test: a decode step never drops, a short forward may)."""
+    return dataclasses.replace(cfg, sliding_window=8,
+                               moe=dataclasses.replace(cfg.moe, capacity_factor=8.0))
+
+
+def test_rolling_cache_decode_matches_forward_and_reference():
+    """20 tokens through a cache of 8 slots (the window) against the port's
+    own forward (2e-3) and the reference's decode (atol 1e-4)."""
+    jcfg = _windowed(dataclasses.replace(JAX_ARCHS["mixtral-8x22b"].reduced(),
+                                         attn_impl="pallas"))
+    jparams = jax_lm.init_params(jax.random.key(3), jcfg)
+    cfg = arch_from_reference(jcfg)
+    params = params_from_reference(jax.tree.map(np.asarray, jparams), cfg, "cpu")
+    toks = _tokens(cfg, (1, 20), 4)
+    full = lm.forward(params, cfg, {"tokens": _t(toks)})
+    st = lm.init_decode_state(cfg, 1, 64, "cpu")
+    jst = jax_lm.init_decode_state(jcfg, 1, 64)
+    assert st.kv.k.shape[3] == 8
+    outs = []
+    for t in range(20):
+        logits, st = lm.decode_step(params, cfg, st, _t(toks[:, t : t + 1]))
+        want, jst = jax_lm.decode_step(jparams, jcfg, jst, jnp.asarray(toks[:, t : t + 1],
+                                                                       jnp.int32))
+        np.testing.assert_allclose(logits.numpy(), np.asarray(want), rtol=0, atol=ATOL)
+        outs.append(logits)
+    np.testing.assert_allclose(torch.cat(outs, 1).numpy(), full.numpy(), rtol=0, atol=2e-3)
+    assert sorted(st.kv.pos_buf[0].tolist()) == list(range(12, 20))
+
+
+def test_windowed_paged_mode_is_refused_below_the_cache():
+    """A window shorter than the cache makes the slab cache a ring: paged is
+    refused with the reference's message, the speculative server serves
+    plain greedy; at the full config's window the paged pool is built."""
+    from repro_torch.runtime.serve_loop import ServingEngine, speculative_supported
+
+    cfg = _windowed(arch_from_reference(JAX_ARCHS["mixtral-8x22b"].reduced()))
+    with pytest.raises(ValueError, match=r"sliding_window >= cache_len \(8 < 24\)"):
+        lm.check_paged_support(cfg, CACHE_LEN)
+    with pytest.raises(ValueError, match="the slab reference wraps"):
+        ServingEngine({"m": cfg}, mode="paged", cache_len=CACHE_LEN, device="cpu")
+    assert not speculative_supported(cfg, CACHE_LEN)
+    full = get_arch("mixtral-8x22b")
+    lm.check_paged_support(full, 4096)
+    with pytest.raises(ValueError, match="4096 < 8192"):
+        lm.check_paged_support(full, 8192)
+
+
+# ---------------------------------------------------------------------------
+# The fp32-copy repairs: the same values as the formulas they replaced
+# ---------------------------------------------------------------------------
+def _attend_before(params, q, view_k, view_v, valid, cfg):
+    """``attention._attend`` as it was: scores of fp32 copies of q and K."""
+    b, _, c, hd = q.shape
+    group = cfg.n_heads // cfg.n_kv_heads
+    qg = q.reshape(b, cfg.n_kv_heads, group, c, hd)
+    scores = torch.einsum("bkgqd,bksd->bkgqs", qg.float(), view_k.float()) * (hd**-0.5)
+    scores = torch.where(valid[:, None, None], scores, -1e30)
+    p = torch.softmax(scores, dim=-1)
+    o = torch.einsum("bkgqs,bksd->bkgqd", p.to(view_v.dtype), view_v)
+    return o.permute(0, 3, 1, 2, 4).reshape(b, c, cfg.n_heads * hd) @ params["wo"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attend_and_head_repairs_keep_their_values(dtype):
+    """On the CPU: fp32 inputs agree with the old formulas to rounding of
+    the summation order (atol 1e-6); bf16 inputs take the same upcast path
+    as before, bit for bit (the card computes them without the copies)."""
+    from repro_torch.models import attention, layers
+
+    cfg = get_arch("qwen2-0.5b").reduced()
+    gen = torch.Generator().manual_seed(1)
+    b, c, w, hd = 2, 3, 10, cfg.hd
+    q = torch.randn((b, cfg.n_heads, c, hd), generator=gen).to(dtype)
+    k, v = (torch.randn((b, cfg.n_kv_heads, w, hd), generator=gen).to(dtype) for _ in range(2))
+    valid = torch.rand((b, c, w), generator=gen) < 0.7
+    valid[..., 0] = True
+    wo = (torch.randn((cfg.n_heads * hd, cfg.d_model), generator=gen) * 0.1).to(dtype)
+    got = attention._attend({"wo": wo}, q, k, v, valid, cfg)
+    want = _attend_before({"wo": wo}, q, k, v, valid, cfg)
+    x = torch.randn((b, c, cfg.d_model), generator=gen).to(dtype)
+    embed = torch.randn((cfg.vocab, cfg.d_model), generator=gen).to(dtype)
+    params = {"ln_f": torch.ones(cfg.d_model, dtype=dtype), "embed": embed, "unembed": embed.T}
+    xn = layers.rmsnorm(x, params["ln_f"], cfg.norm_eps)
+    heads = {True: xn.float() @ embed.float().T, False: xn.float() @ embed.T.float()}
+    for tie in (True, False):
+        head = lm._head(params, dataclasses.replace(cfg, tie_embeddings=tie), x)
+        assert head.dtype == torch.float32
+        if dtype == torch.float32:
+            np.testing.assert_allclose(head.numpy(), heads[tie].numpy(), rtol=0, atol=1e-6)
+        else:
+            assert torch.equal(head, heads[tie])
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-6)
+    else:
+        assert torch.equal(got, want)

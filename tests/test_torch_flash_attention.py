@@ -33,6 +33,12 @@ CASES = [
     (1, 4, 2, 256, 64, False, None),
     (1, 4, 2, 384, 64, True, 128),  # sliding window
     (1, 2, 2, 512, 128, True, 256),
+    # Beyond the reference's cases: a ragged non-causal length (the whisper
+    # encoder's path) and nemotron's head dim 192.
+    (1, 4, 4, 300, 64, False, None),
+    (1, 4, 2, 256, 192, True, None),
+    (1, 4, 2, 384, 192, True, 128),
+    (1, 2, 2, 300, 192, False, None),
 ]
 FP32_ATOL = 3e-5
 BF16_ATOL = 3e-2

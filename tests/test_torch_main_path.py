@@ -151,17 +151,19 @@ def test_device_defaults_to_card_and_never_falls_back():
 
 def test_later_slices_raise_not_implemented(tmp_path):
     """What is still unported raises and names its ROADMAP item: the
-    encoder-decoder and VLM families (item 8), the training loss (item 9), the tensor-parallel
-    layout and the sharded serving steps (item 10).  The ensemble runner's
-    on-disk checkpoints, which raised here before the checkpoint module
-    was ported, now take effect."""
+    training loss of the decoder-only and encoder-decoder families (item
+    9; the encoder-decoder family itself, item 8, is now built), the
+    tensor-parallel layout and the sharded serving steps (item 10).  The
+    ensemble runner's on-disk checkpoints, which raised here before the
+    checkpoint module was ported, now take effect."""
     from repro_torch.configs.base import ArchConfig
-    from repro_torch.models import lm
+    from repro_torch.models import encdec, lm
     from repro_torch.runtime import serve_loop, sharding
 
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ArchConfig(arch_id="m", family="encdec", n_layers=1, d_model=8, n_heads=1,
-                   n_kv_heads=1, d_ff=8, vocab=8)
+    ArchConfig(arch_id="m", family="encdec", n_layers=1, d_model=8, n_heads=1,
+               n_kv_heads=1, d_ff=8, vocab=8)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        encdec.lm_loss
     with pytest.raises(NotImplementedError, match="item 9"):
         lm.lm_loss
     for unported in (lambda: serve_loop.shard_decode_step,

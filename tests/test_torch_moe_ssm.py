@@ -165,7 +165,7 @@ def test_gelu_mlp_matches_reference():
     want = jax_layers.mlp({k: jnp.asarray(v) for k, v in p.items()}, jnp.asarray(x), "gelu")
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-6)
     with pytest.raises(ValueError):
-        layers.mlp({k: _t(v) for k, v in p.items()}, _t(x), "sqrelu")
+        layers.mlp({k: _t(v) for k, v in p.items()}, _t(x), "geglu")
 
 
 # ---------------------------------------------------------------------------
