@@ -174,12 +174,33 @@ Phases (any failure exits non-zero; there is no CPU path):
    against ``decode_train`` (fp32 on a 2 + 2 layer cut within 2e-3; bf16
    by phase 5's rule), and the serving engine's refusal; each held call
    is timed beside SDPA's time at its shape and its bound;
-7. print the ``kernels`` JSON line, then the result line.
+7. training, no kernel launched (the path takes the plain blocked
+   attention, as the reference's training does): (a) smollm-360m at full
+   width in bf16 through ``launch.train``'s functions, 30 steps of seq 256
+   x batch 8 on the Markov pipeline (bf16 moments, no master copy, the
+   launcher's warmup): every loss and grad norm finite, the mean loss of
+   steps 26-30 at least ``LOSS_DROP`` below that of steps 1-5; the step
+   time (CUDA events, median of the last 20), tokens/s and the peak memory
+   above the start; (b) on a two-block cut, 6 steps straight against
+   3 + save (bf16 leaves) + restore into a fresh trainer + 3 through the
+   launcher's ``run``, parameters and optimizer state bit for bit under
+   ``torch.use_deterministic_algorithms(True)``; (c) the cut in fp32: the
+   card's loss and gradients against the CPU's on the same params and
+   batch, microbatches 2 against 1, remat on against off bit for bit, and
+   the head's product through ``matmul_f32`` in bf16 and its gradients
+   against the fp32 upcast; (d) int8 error-feedback compression on a
+   two-entry mesh of the card, the reference test's three bounds; (e) one
+   loss and gradient in bf16 of every other family on 6c/6d's depth cuts:
+   loss finite, every gradient leaf finite and not all zero; (f) a loss
+   through ``attn_impl="kernel"`` under autograd raises the kernel's
+   refusal;
+8. print the ``kernels`` JSON line, then the result line.
 """
 from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -2551,6 +2572,9 @@ def _named(node, prefix=""):
     if isinstance(node, dict):
         for k, v in node.items():
             yield from _named(v, f"{prefix}{k}.")
+    elif isinstance(node, list):
+        for i, v in enumerate(node):
+            yield from _named(v, f"{prefix}{i}.")
     else:
         yield prefix[:-1], node
 
@@ -3337,10 +3361,473 @@ def phase_lm(torch, rows, ended=lambda phase: None):
     ended("6b paged and speculative")
 
 
+# ---------------------------------------------------------------------------
+# phase 7: training
+# ---------------------------------------------------------------------------
+# (a) The reference's example run (examples/train_lm.py): smollm-360m at
+# full width in bf16, seq 256 x batch 8, the default TrainRuntime (bf16
+# moments, no master copy), the launcher's warmup (max(steps // 20, 5)).
+TRAIN_ARCH = "smollm-360m"
+TRAIN_STEPS = 30
+TRAIN_SEQ_LEN = 256
+TRAIN_BATCH = 8
+TRAIN_TIMED = 20  # the step time is the median of the last 20 steps
+# The Markov data is learnable: the mean loss of steps 26-30 must lie at
+# least this far (nats) below that of steps 1-5.  From the initial ~10.8
+# (ln 49,152) the unigram Zipf alone is worth ~5 nats.
+LOSS_DROP = 0.5
+# (b), (c), (f): smollm-360m at full widths, cut to two blocks.
+TRAIN_CUT = 2
+RESUME_STEPS = 6
+RESUME_SPLIT = 3
+# (c) in fp32: the card against the CPU on one batch of 2 x 256 tokens (the
+# CPU's share of the run).  Two fp32 libraries sum in other orders: the
+# loss within 1e-5 relative, each gradient leaf within 1e-4 of its largest
+# CPU value (the CPU tests' bound against the reference).  Microbatches
+# k = 2 against k = 1 on the card: the same sums split in two, 1e-5.
+CUT_BATCH = 2
+CPU_LOSS_RTOL = 1e-5
+CPU_GRAD_RTOL = 1e-4
+MICROBATCH_RTOL = 1e-5
+# The head's product through matmul_f32 in bf16, (M, K) x (K, N) at
+# smollm's width and a slice of its vocabulary, against the fp32 upcast:
+# the forward within 1e-5 of the output's size (the same exact products
+# summed in another order), each operand's gradient (an fp32 product cast
+# to bf16, as autograd of the upcast computes) within one bf16 rounding.
+HEAD_SHAPE = (64, 960, 4096)
+HEAD_FWD_RTOL = 1e-5
+HEAD_GRAD_RTOL = 2.0**-8
+# (d) The reference test's least-squares problem on a two-entry mesh of
+# the card, and its three bounds (tests/test_grad_compression.py).
+EF_STEPS_AVG = 20
+EF_STEPS_TRAIN = 100
+EF_LR = 0.1
+# (e) One loss-and-gradient step of every other family in bf16 on the depth
+# cuts of phases 6c and 6d (whisper: 2 encoder + 2 decoder layers), batch 2
+# of 64 tokens (llava's after its 2,880 patches, whisper's over its 1,500
+# frames).
+FAMILY_GRAD_CUTS = {"granite-moe-3b-a800m": 2, "mamba2-1.3b": 2, "zamba2-1.2b": 6,
+                    "llava-next-mistral-7b": 2, "mixtral-8x22b": 4, "whisper-large-v3": 2}
+FAMILY_GRAD_TOKENS = 64
+FAMILY_GRAD_BATCH = 2
+FAMILY_GRAD_LEFT_OUT = {
+    "nemotron-4-340b": "two blocks hold 32.7 GB of bf16 weights and as much again of gradients, "
+                       "and the head's backward upcasts the 18,432 x 256,000 unembedding to "
+                       "fp32 (18.9 GB): 84 GB, more than the card's 80",
+    "qwen2-0.5b": "dense, the family (a) trains; served at full width in phases 5-6",
+    "phi4-mini-3.8b": "dense, the family (a) trains; no phase puts it on the card",
+}
+
+
+def _smollm_cut(dtype: str = "bfloat16"):
+    from repro_torch.configs import ARCHS
+
+    return replace(ARCHS[TRAIN_ARCH], n_layers=TRAIN_CUT, param_dtype=dtype, compute_dtype=dtype)
+
+
+def _all_finite(tree) -> bool:
+    from repro_torch.optim.tree import tree_leaves
+
+    return all(bool(t.isfinite().all()) for t in tree_leaves(tree))
+
+
+def train_full_width(torch, smi: str) -> dict:
+    """(a) 30 steps of smollm-360m at full width through the launcher's
+    functions: every loss and grad norm finite, the loss falling by
+    LOSS_DROP; the step time from CUDA events, tokens/s and the peak memory
+    above the start."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.train import make_trainer
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    trainer = make_trainer(ARCHS[TRAIN_ARCH], steps=TRAIN_STEPS, seq_len=TRAIN_SEQ_LEN,
+                           batch=TRAIN_BATCH, device="cuda")
+    torch.cuda.synchronize()
+    state = torch.cuda.memory_allocated() - base
+    init_s = time.perf_counter() - t0
+    metrics, events = [], []
+    t0 = time.perf_counter()
+    for step in range(TRAIN_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics.append(trainer.step(step))
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    losses = [float(m["loss"]) for m in metrics]
+    gnorms = [float(m["grad_norm"]) for m in metrics]
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        fail(f"7a: a loss or grad norm is not finite: {losses} {gnorms}")
+    if not _all_finite(trainer.params):
+        fail("7a: the trained parameters are not finite")
+    ms = sorted(s.elapsed_time(e) for s, e in events[-TRAIN_TIMED:])
+    median = ms[len(ms) // 2] if len(ms) % 2 else (ms[len(ms) // 2 - 1] + ms[len(ms) // 2]) / 2
+    tokens = TRAIN_SEQ_LEN * TRAIN_BATCH
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    n_params = sum(t.numel() for t in _leaves(trainer.params))
+    print(f"[7a] {TRAIN_ARCH} at full width ({n_params:,} parameters, bf16, moments bf16, no "
+          f"master copy), seq {TRAIN_SEQ_LEN} x batch {TRAIN_BATCH}: {TRAIN_STEPS} steps in "
+          f"{wall:.2f} s (init {init_s:.2f} s)")
+    print(f"[7a] losses {[round(x, 4) for x in losses]}")
+    print(f"[7a] grad norms {[round(x, 3) for x in gnorms]}")
+    print(f"[7a] mean loss of steps 1-5 {first:.4f}, of steps 26-30 {last:.4f}: fell "
+          f"{first - last:.4f} nats (at least {LOSS_DROP})")
+    if not first - last >= LOSS_DROP:
+        fail(f"7a: the loss fell {first - last:.4f} nats, less than {LOSS_DROP}")
+    print(f"[7a] step time (CUDA events, median of the last {TRAIN_TIMED}) {median:.3f} ms "
+          f"(min {ms[0]:.3f}, max {ms[-1]:.3f}); {tokens / median * 1e3:,.0f} tokens/s; "
+          f"state (params, m, v) {state / 2**30:.3f} GiB, peak above the start "
+          f"{peak / 2**30:.3f} GiB; {smi}")
+    out = {"step_ms": median, "tokens_per_s": tokens / median * 1e3, "peak_gib": peak / 2**30,
+           "loss_first5": first, "loss_last5": last}
+    train_step_parts(torch, trainer)
+    out["device_busy"] = profile_train_step(torch, trainer)
+    del trainer, metrics
+    return out
+
+
+def profile_train_step(torch, trainer) -> float:
+    """The device's busy share of one train step and its largest device
+    operations, from ``torch.profiler`` with device activity only (a step
+    issues ~16k device operations; host events too would cost tens of
+    seconds to read back) -> the busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.step(TRAIN_STEPS)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        print(f"[7a] train step under the profiler: {wall_ms:.1f} ms wall; device time not "
+              "measured (the profiler saw no device operations)")
+        return float("nan")
+    by_name = Counter()
+    for e in kernels:
+        by_name[e.name] += e.time_range.elapsed_us() / 1e3
+    busy_ms = sum(by_name.values())
+    print(f"[7a] train step under the profiler (device activity): {wall_ms:.1f} ms wall, "
+          f"{len(kernels)} device operations, device time {busy_ms:.1f} ms: busy "
+          f"{busy_ms / wall_ms:.1%}; largest: "
+          + "; ".join(f"{name[:80]} {t:.2f} ms" for name, t in by_name.most_common(5)))
+    return busy_ms / wall_ms
+
+
+def train_step_parts(torch, trainer, repeats: int = 3) -> None:
+    """Where a step's time goes, by the host's clock with the card
+    synchronised between the parts: the batch (the Markov pipeline on the
+    host), the loss and gradients (forward, remat's second forward,
+    backward) and the AdamW update, each the same function the step runs
+    (medians of ``repeats``)."""
+    from repro_torch.optim.adamw import make_adamw
+    from repro_torch.runtime.train_loop import make_grad_fn
+
+    grad_fn = make_grad_fn(trainer.cfg, trainer.rt)
+    _, update = make_adamw(trainer.rt.adamw)
+    parts = {"batch": [], "loss and gradients": [], "AdamW update": []}
+    for r in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = trainer.batch(TRAIN_STEPS + r)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _, grads = grad_fn(trainer.params, batch)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        update(grads, trainer.opt_state, trainer.params)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for name, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
+            parts[name].append(dt * 1e3)
+        del grads
+    print("[7a] a step's parts (host clock, card synchronised, median of "
+          f"{repeats}): " + "; ".join(f"{k} {sorted(v)[len(v) // 2]:.2f} ms"
+                                      for k, v in parts.items()))
+
+
+def _trees_equal(torch, a, b) -> int:
+    """Leaves of ``a`` and ``b`` that differ in any bit."""
+    from repro_torch.optim.tree import tree_leaves
+
+    return sum(not torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def train_resume(torch) -> None:
+    """(b) 6 steps straight against 3 + save + restore into a fresh
+    trainer + 3, through the launcher's ``run``, bf16 leaves on disk:
+    parameters and optimizer state equal bit for bit under
+    ``torch.use_deterministic_algorithms(True)``."""
+    import tempfile
+
+    from repro_torch.launch.train import make_trainer, run
+
+    cut = _smollm_cut()
+    kw = dict(steps=RESUME_STEPS, seq_len=TRAIN_SEQ_LEN, batch=TRAIN_BATCH, device="cuda")
+    torch.use_deterministic_algorithms(True)
+    try:
+        straight = make_trainer(cut, **kw)
+        run(straight, 0, RESUME_STEPS, log_every=RESUME_STEPS)
+        first = make_trainer(cut, **kw)
+        (REPO / "build").mkdir(exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=REPO / "build") as d:
+            path = str(Path(d) / "train.npz")
+            t0 = time.perf_counter()
+            run(first, 0, RESUME_SPLIT, checkpoint=path, checkpoint_every=RESUME_SPLIT,
+                log_every=RESUME_SPLIT)
+            save_s = time.perf_counter() - t0
+            size = Path(path).stat().st_size
+            resumed = make_trainer(cut, **kw)
+            t0 = time.perf_counter()
+            start = resumed.restore(path)
+            restore_s = time.perf_counter() - t0
+        if start != RESUME_SPLIT:
+            fail(f"7b: restored step {start}, saved {RESUME_SPLIT}")
+        run(resumed, start, RESUME_STEPS, log_every=RESUME_STEPS)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    bf16 = sum(t.dtype == torch.bfloat16 for t in _leaves(straight.params))
+    unequal = (_trees_equal(torch, straight.params, resumed.params)
+               + _trees_equal(torch, straight.opt_state, resumed.opt_state))
+    print(f"[7b] {TRAIN_ARCH} cut to {TRAIN_CUT} blocks, {RESUME_STEPS} steps straight vs "
+          f"{RESUME_SPLIT} + save + restore + {RESUME_STEPS - RESUME_SPLIT} (deterministic "
+          f"algorithms): {bf16} bf16 parameter leaves; {size / 1e6:.1f} MB on disk, the 3 steps "
+          f"and saves {save_s:.2f} s, restore {restore_s:.2f} s; {unequal} leaves of params and "
+          "optimizer state differ (0 required)")
+    if unequal:
+        fail(f"7b: {unequal} leaves differ after the restart")
+
+
+def _leaf_errors(torch, got, want):
+    """Largest |got - want| of each leaf over the leaf's largest |want|."""
+    from repro_torch.optim.tree import tree_leaves
+
+    return [float((g.float().cpu() - w.float().cpu()).abs().max())
+            / max(float(w.float().abs().max()), 1e-30)
+            for g, w in zip(tree_leaves(got), tree_leaves(want))]
+
+
+def train_cut_checks(torch) -> None:
+    """(c) smollm-360m at full widths cut to two blocks in fp32: the card's
+    loss and gradients against the CPU's on the same params and batch;
+    microbatches 2 against 1 and remat on against off on the card; the
+    head's product through matmul_f32 in bf16 against the fp32 upcast."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data import microbatch, synthetic_lm_batch
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import matmul_f32
+    from repro_torch.optim.tree import tree_leaves, tree_map
+    from repro_torch.runtime.train_loop import TrainRuntime, make_grad_fn
+
+    cut = _smollm_cut("float32")
+    params = build_model(cut).init(torch.Generator(device="cuda").manual_seed(1), "cuda")
+    batch = synthetic_lm_batch(cut, ShapeConfig("7c", TRAIN_SEQ_LEN, CUT_BATCH, "train"), 0,
+                               device="cuda")
+    grad_fn = make_grad_fn(cut, TrainRuntime())
+    loss, grads = grad_fn(params, batch)
+    t0 = time.perf_counter()
+    cpu = lambda t: t.cpu()  # noqa: E731
+    loss_cpu, grads_cpu = grad_fn(tree_map(cpu, params), tree_map(cpu, batch))
+    cpu_s = time.perf_counter() - t0
+    loss_err = abs(float(loss) - float(loss_cpu)) / abs(float(loss_cpu))
+    worst = max(_leaf_errors(torch, grads, grads_cpu))
+    print(f"[7c] {TRAIN_ARCH} cut to {TRAIN_CUT} blocks in fp32, batch {CUT_BATCH} x "
+          f"{TRAIN_SEQ_LEN}: loss card {float(loss):.7f} CPU {float(loss_cpu):.7f} (relative "
+          f"{loss_err:.2e}, limit {CPU_LOSS_RTOL}); gradients: largest leaf error {worst:.2e} "
+          f"of the leaf's size (limit {CPU_GRAD_RTOL}); the CPU took {cpu_s:.1f} s")
+    if not (loss_err <= CPU_LOSS_RTOL and worst <= CPU_GRAD_RTOL):
+        fail("7c: the card's loss or gradients leave the CPU's")
+    loss2, grads2 = make_grad_fn(cut, TrainRuntime(microbatches=2))(params, microbatch(batch, 2))
+    mb_loss = abs(float(loss2) - float(loss)) / abs(float(loss))
+    mb_worst = max(_leaf_errors(torch, grads2, grads))
+    print(f"[7c] microbatches 2 vs 1: loss relative {mb_loss:.2e}, largest gradient leaf error "
+          f"{mb_worst:.2e} (limit {MICROBATCH_RTOL})")
+    if not (mb_loss <= MICROBATCH_RTOL and mb_worst <= MICROBATCH_RTOL):
+        fail("7c: microbatched gradients leave the whole batch's")
+    # The embedding's backward accumulates rows in no fixed order unless
+    # deterministic algorithms are on.
+    torch.use_deterministic_algorithms(True)
+    try:
+        loss_on, grads_on = grad_fn(params, batch)
+        loss_r, grads_r = make_grad_fn(replace(cut, remat=False), TrainRuntime())(params, batch)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    unequal = _trees_equal(torch, grads_on, grads_r) + (not torch.equal(loss_on, loss_r))
+    print(f"[7c] remat on vs off (deterministic algorithms): {unequal} of "
+          f"{len(tree_leaves(grads)) + 1} loss and gradient leaves differ (0 required)")
+    if unequal:
+        fail("7c: remat changed the loss or the gradients")
+    del params, grads, grads_cpu, grads2, grads_on, grads_r
+    m, k, n = HEAD_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    a = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16).requires_grad_()
+    b = (torch.randn((k, n), generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
+    b.requires_grad_()
+    cot = torch.randn((m, n), generator=gen, device="cuda")
+    out = matmul_f32(a, b)
+    ga, gb = torch.autograd.grad(out, (a, b), cot)
+    a_up, b_up = a.detach().requires_grad_(), b.detach().requires_grad_()
+    ref = a_up.float() @ b_up.float()
+    ra, rb = torch.autograd.grad(ref, (a_up, b_up), cot)
+    out, ref = out.detach(), ref.detach()
+    fwd = float((out - ref).abs().max()) / float(ref.abs().max())
+    errs = [float((x.float() - y.float()).abs().max()) / float(y.float().abs().max())
+            for x, y in ((ga, ra), (gb, rb))]
+    n_unequal = int((ga != ra).sum()) + int((gb != rb).sum())
+    print(f"[7c] head product through matmul_f32 {HEAD_SHAPE} bf16 (cuBLAS out_dtype fp32) vs "
+          f"the fp32 upcast: forward {fwd:.2e} of its size (limit {HEAD_FWD_RTOL}); gradients "
+          f"{errs[0]:.2e}, {errs[1]:.2e} (limit {HEAD_GRAD_RTOL}), {n_unequal} of "
+          f"{ga.numel() + gb.numel()} values unequal")
+    if not (fwd <= HEAD_FWD_RTOL and max(errs) <= HEAD_GRAD_RTOL):
+        fail("7c: matmul_f32's product or gradient leaves the fp32 upcast's")
+
+
+def train_compression(torch) -> None:
+    """(d) int8 error-feedback compression on a two-entry mesh of the card:
+    the reference test's least-squares problem and its three bounds."""
+    import numpy as np
+
+    from repro_torch.optim.grad_compression import init_error_buffers, make_compressed_dp_grad_fn
+    from repro_torch.optim.tree import value_and_grad
+    from repro_torch.runtime.sharding import DataMesh
+
+    rng = np.random.default_rng(0)
+    dev = "cuda"
+    w = torch.tensor(rng.normal(size=(16, 4)) * 0.1, dtype=torch.float32, device=dev)
+    x = torch.tensor(rng.normal(size=(64, 16)), dtype=torch.float32, device=dev)
+    w_true = torch.tensor(rng.normal(size=(16, 4)) * 0.5, dtype=torch.float32, device=dev)
+    y = x @ w_true + 0.01 * torch.tensor(rng.normal(size=(64, 4)), dtype=torch.float32,
+                                         device=dev)
+
+    def loss_fn(w, batch):
+        xx, yy = batch
+        return torch.mean((xx @ w - yy) ** 2)
+
+    grad_fn = make_compressed_dp_grad_fn(loss_fn, DataMesh(["cuda:0", "cuda:0"]))
+    exact = value_and_grad(loss_fn, w, (x, y))[1]
+    _, g_hat, _ = grad_fn(w, init_error_buffers(w), (x, y))
+    rel1 = float(torch.linalg.norm(g_hat - exact) / torch.linalg.norm(exact))
+    acc, err = torch.zeros_like(w), init_error_buffers(w)
+    for _ in range(EF_STEPS_AVG):
+        _, g_hat, err = grad_fn(w, err, (x, y))
+        acc = acc + g_hat
+    rel20 = float(torch.linalg.norm(acc / EF_STEPS_AVG - exact) / torch.linalg.norm(exact))
+    w2, err = w, init_error_buffers(w)
+    l0 = float(loss_fn(w2, (x, y)))
+    for _ in range(EF_STEPS_TRAIN):
+        _, g_hat, err = grad_fn(w2, err, (x, y))
+        w2 = w2 - EF_LR * g_hat
+    l1 = float(loss_fn(w2, (x, y)))
+    print(f"[7d] int8 error feedback on a two-entry mesh of the card: one step {rel1:.4f} of the "
+          f"exact gradient (limit 0.05); the mean of {EF_STEPS_AVG} {rel20:.4f} (limit rel1 + "
+          f"0.01); least squares {l0:.4f} -> {l1:.4f} in {EF_STEPS_TRAIN} steps (limit half)")
+    if not (rel1 < 0.05 and rel20 < rel1 + 0.01 and l1 < 0.5 * l0):
+        fail("7d: compressed gradients miss the reference test's bounds")
+
+
+def train_families(torch) -> None:
+    """(e) One loss and gradient in bf16 for every family but dense, on
+    phases 6c/6d's depth cuts: the loss finite, each parameter's gradient
+    finite and not all zero (the MoE router's too, through the aux loss)."""
+    import gc
+
+    from repro_torch.configs import ARCHS, ShapeConfig
+    from repro_torch.data import synthetic_lm_batch
+    from repro_torch.models import build_model
+    from repro_torch.optim.tree import value_and_grad
+    from repro_torch.runtime.train_loop import training_config
+
+    for name, why in FAMILY_GRAD_LEFT_OUT.items():
+        print(f"[7e] {name} left out: {why}")
+    for name, n_layers in FAMILY_GRAD_CUTS.items():
+        cfg = replace(ARCHS[name], n_layers=n_layers)
+        if cfg.n_encoder_layers:
+            cfg = replace(cfg, n_encoder_layers=n_layers)
+        params = draw_params(torch, cfg, "7e")
+        shape = ShapeConfig("7e", FAMILY_GRAD_TOKENS + cfg.n_patches, FAMILY_GRAD_BATCH, "train")
+        batch = synthetic_lm_batch(cfg, shape, 0, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        loss, grads = value_and_grad(build_model(training_config(cfg)).loss, params, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        named = list(_named(grads))
+        bad = [k for k, g in named if not bool(g.isfinite().all()) or not bool((g != 0).any())]
+        router = [k for k, _ in named if k.endswith("router")]
+        print(f"[7e] {name} ({cfg.family}, {n_layers} blocks"
+              + (f" + {n_layers} encoder blocks" if cfg.n_encoder_layers else "")
+              + f"), batch {tuple(batch['tokens'].shape)}: loss {float(loss):.4f}, "
+              f"{len(named)} gradient leaves, {len(bad)} not finite or all zero, routers "
+              f"{len(router)}; {wall:.2f} s, peak {peak:.2f} GiB above the weights")
+        if not math.isfinite(float(loss)) or bad:
+            fail(f"7e: {name}: loss {float(loss)}, gradients not finite or all zero: {bad[:8]}")
+        del params, grads, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def train_refusal(torch) -> None:
+    """(f) A loss taken through the flash kernel under autograd raises the
+    kernel's refusal."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data import synthetic_lm_batch
+    from repro_torch.models import build_model
+    from repro_torch.optim.tree import value_and_grad
+
+    cut = replace(_smollm_cut(), attn_impl="kernel")
+    params = build_model(cut).init(torch.Generator(device="cuda").manual_seed(3), "cuda")
+    batch = synthetic_lm_batch(cut, ShapeConfig("7f", TRAIN_SEQ_LEN, 1, "train"), 0,
+                               device="cuda")
+    try:
+        value_and_grad(build_model(cut).loss, params, batch)
+    except RuntimeError as e:
+        if "no backward" not in str(e):
+            raise
+        print(f"[7f] a loss through attn_impl='kernel' under autograd refused: {e}")
+        return
+    fail("7f: the flash kernel ran under autograd")
+
+
+def phase_training(torch, smi: str, ended=lambda phase: None) -> dict:
+    """7: training, (a)-(f); no kernel of the port may launch."""
+    from repro_torch.kernels import build
+
+    build.reset_counters()
+    out = train_full_width(torch, smi)
+    ended("7a full width")
+    train_resume(torch)
+    train_cut_checks(torch)
+    train_compression(torch)
+    ended("7b-d resume, cut, compression")
+    train_families(torch)
+    ended("7e families")
+    train_refusal(torch)
+    launched = {n: c.value for n, c in build.COUNTERS.items() if c.value}
+    print(f"[7] kernel launches during training: {launched or 'none'} (the path takes the plain "
+          "blocked attention)")
+    if launched:
+        fail(f"7: training launched kernels {launched}")
+    return out
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run from a checkout")
     sys.path.insert(0, str(SRC))
+    # cuBLAS reads its workspace setting once; deterministic algorithms
+    # (phase 7b) require one of the two fixed settings.  ":4096:8" is
+    # PyTorch's own default on Hopper.
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -3389,7 +3876,8 @@ def main() -> None:
     phase_lm(torch, rows, ended)
     phase_families(torch, rows, ended)
     phase_last_families(torch, rows, ended)
-    print(f"[7] all phases passed in {time.perf_counter() - t_start:.1f}s; seconds by phase "
+    phase_training(torch, smi, ended)
+    print(f"[8] all phases passed in {time.perf_counter() - t_start:.1f}s; seconds by phase "
           f"{phase_walls}")
     keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")

@@ -14,9 +14,13 @@ on-disk format, so a file either package writes restores in the other:
   * an optional background thread makes saves non-blocking.
 
 A tree is nested dicts, lists and tuples (named ones too) of tensors,
-numpy arrays or scalars; ``None`` is an empty subtree.  Dtypes numpy cannot
-hold (bfloat16, the float8 types) belong to the training path, which is
-not ported yet (ROADMAP Queue 1 item 9).
+numpy arrays or scalars; ``None`` is an empty subtree.  A bfloat16 leaf
+(the training state) is written as the reference writes one: its raw
+2-byte words, numpy's void dtype ``|V2``.  It is restored by
+reinterpreting those bytes, not by a cast (numpy has no cast from void to
+a number: the reference's own ``restore`` raises on such a file).  Other
+dtypes numpy cannot hold (the float8 types) are refused; no state of the
+port holds them.
 """
 from __future__ import annotations
 
@@ -29,7 +33,6 @@ from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import NOT_TRAINED
 from repro_torch.device import DeviceLike, resolve_device
 
 _NUMPY_DTYPES = {
@@ -40,22 +43,43 @@ _NUMPY_DTYPES = {
 }
 
 
+# bfloat16 on disk: the raw 2-byte words, as ml_dtypes' bfloat16 arrays
+# (the reference's leaves) are saved.
+_BF16_ON_DISK = np.dtype("V2")
+
+
 def _numpy_dtype(dtype: torch.dtype):
     try:
         return _NUMPY_DTYPES[dtype]
     except KeyError:
         raise TypeError(
-            f"checkpoint leaves of dtype {dtype} have no numpy counterpart: "
-            f"{NOT_TRAINED}"
+            f"checkpoint leaves of dtype {dtype} have no numpy counterpart "
+            "(bfloat16 is written as raw 2-byte words; the float8 types are not)"
         ) from None
 
 
 def _host(leaf) -> np.ndarray:
     """A leaf as a host array of its own (never a view of a live tensor)."""
     if isinstance(leaf, torch.Tensor):
-        _numpy_dtype(leaf.dtype)
-        return leaf.detach().to("cpu", copy=True).numpy()
+        t = leaf.detach().to("cpu", copy=True)
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(_BF16_ON_DISK)
+        _numpy_dtype(t.dtype)
+        return t.numpy()
     return np.array(leaf, copy=True)
+
+
+def _tensor(arr: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+    """A stored array as a host tensor of ``dtype``: raw 2-byte words (or an
+    ml_dtypes bfloat16 array) are bfloat16 reinterpreted; numpy dtypes are
+    cast by numpy as before; bfloat16 from a number by PyTorch's rounding."""
+    if arr.dtype == _BF16_ON_DISK or arr.dtype.name == "bfloat16":
+        t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    elif dtype == torch.bfloat16:
+        t = torch.from_numpy(arr)
+    else:
+        return torch.from_numpy(arr.astype(_numpy_dtype(dtype)))
+    return t.to(dtype)
 
 
 def _leaves(tree, path: Tuple[str, ...] = ()) -> Iterator[Tuple[str, Any]]:
@@ -138,10 +162,11 @@ class AsyncCheckpointer:
 def restore(path: str, like, *, device: Optional[DeviceLike] = None):
     """Restore into the structure of ``like``: ``(tree, step, extra)``.
 
-    Each leaf is cast to its ``like`` leaf's dtype (where it has one).  A
-    tensor leaf comes back as a tensor on ``device``, or on its ``like``
-    leaf's device (the CPU for a leaf on ``meta``); other leaves come back
-    as numpy arrays.
+    Each leaf is cast to its ``like`` leaf's dtype (where it has one; a
+    stored bfloat16 leaf is reinterpreted, then cast).  A tensor leaf
+    comes back as a tensor on ``device``, or on its ``like`` leaf's device
+    (the CPU for a leaf on ``meta``); other leaves come back as numpy
+    arrays.
     """
     dev = resolve_device(device) if device is not None else None
     with open(path + ".meta.json") as f:
@@ -151,9 +176,8 @@ def restore(path: str, like, *, device: Optional[DeviceLike] = None):
         def leaf(key: str, like_leaf):
             arr = data[key]
             if isinstance(like_leaf, torch.Tensor):
-                arr = arr.astype(_numpy_dtype(like_leaf.dtype))
                 to = dev or like_leaf.device
-                return torch.from_numpy(arr).to("cpu" if to.type == "meta" else to)
+                return _tensor(arr, like_leaf.dtype).to("cpu" if to.type == "meta" else to)
             if hasattr(like_leaf, "dtype"):
                 arr = arr.astype(like_leaf.dtype)
             return arr

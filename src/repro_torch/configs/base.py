@@ -5,8 +5,7 @@ MoE, SSM (Mamba2), hybrid (Mamba2 with one shared attention block) and VLM
 (patch embeddings projected in front of the tokens) families, and the
 encoder-decoder (whisper) family, with the SwiGLU, squared-ReLU or GELU
 MLP.  What is still refused raises :class:`NotImplementedError` naming
-its ROADMAP item: the training path (item 9) and the sharded entry points
-(item 10).
+its ROADMAP item: the sharded entry points (item 10).
 """
 from __future__ import annotations
 
@@ -19,9 +18,7 @@ from typing import Dict, Optional
 ATTN_IMPLS = ("kernel", "chunked", "xla")
 # The reference's names for the same three ("pallas" is its TPU kernel).
 _REFERENCE_ATTN_IMPL = {"pallas": "kernel", "chunked": "chunked", "xla": "xla"}
-# What a refusal names: the training path and the sharded per-cell entry
-# points.
-NOT_TRAINED = "not ported yet (ROADMAP Queue 1 item 9)"
+# What a refusal names: the sharded per-cell entry points.
 NOT_SHARDED = "not ported yet (ROADMAP Queue 1 item 10)"
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "encdec")
 MLPS = ("swiglu", "sqrelu", "gelu")
@@ -83,6 +80,9 @@ class ArchConfig:
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
     attn_impl: str = "kernel"  # one of ATTN_IMPLS
+    # Training: recompute each block's activations in the backward pass
+    # (torch.utils.checkpoint), as the reference's jax.checkpoint.
+    remat: bool = True
     source: str = ""
 
     def __post_init__(self) -> None:
@@ -114,6 +114,7 @@ class ArchConfig:
             vocab=256,
             param_dtype="float32",
             compute_dtype="float32",
+            remat=False,
         )
         if self.moe is not None:
             changes["moe"] = replace(self.moe, n_experts=min(self.moe.n_experts, 4),

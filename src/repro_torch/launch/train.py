@@ -1,0 +1,152 @@
+"""Training launcher: ``python -m repro_torch.launch.train --arch smollm-360m ...``
+
+Runs real steps on one device with the train-step factory
+(``runtime.train_loop``): the config system, the synthetic Markov data
+pipeline, AdamW with its schedule and clipping, microbatches, and
+checkpoint/restart (``--checkpoint``, ``--resume``; saves in the
+background every ``--checkpoint-every`` steps).  The flags and the
+``[train] step ...`` log line are the reference's; ``--device`` is the
+port's (the card by default, ``cpu`` on request).  There is no mesh: the
+sharded step is not ported yet (ROADMAP Queue 1 item 10).
+
+    PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu --steps 20
+
+In code, :func:`make_trainer` builds the model, optimizer and data of a
+run and :class:`Trainer` takes its steps; :func:`run` is the loop the CLI
+drives.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import time
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Optional, Sequence
+
+import torch
+
+from repro_torch.checkpoint.checkpoint import AsyncCheckpointer, restore, save
+from repro_torch.configs import ARCHS, get_arch
+from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.data.pipeline import microbatch, synthetic_lm_batch
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.runtime.train_loop import TrainRuntime, make_train_fns
+
+
+@dataclass
+class Trainer:
+    """One training run's model, optimizer state and data stream."""
+
+    cfg: ArchConfig
+    shape: ShapeConfig
+    rt: TrainRuntime
+    train_step: Callable
+    params: Any
+    opt_state: Any
+    device: torch.device
+    seed: int = 0
+
+    def batch(self, step: int) -> Dict[str, torch.Tensor]:
+        """Step ``step``'s batch (a pure function of (seed, step)), in the
+        microbatch layout."""
+        b = synthetic_lm_batch(self.cfg, self.shape, step, seed=self.seed, device=self.device)
+        return microbatch(b, self.rt.microbatches)
+
+    def step(self, step: int) -> Dict[str, torch.Tensor]:
+        """One update on step ``step``'s batch -> its metrics (0-d tensors)."""
+        self.params, self.opt_state, metrics = self.train_step(
+            self.params, self.opt_state, self.batch(step))
+        return metrics
+
+    @property
+    def state(self):
+        return (self.params, self.opt_state)
+
+    def restore(self, path: str) -> int:
+        """Load ``(params, opt_state)`` from ``path`` -> the step it was
+        saved at."""
+        (self.params, self.opt_state), step, _ = restore(path, self.state, device=self.device)
+        return step
+
+
+def make_trainer(cfg: ArchConfig, *, steps: int, seq_len: int = 256, batch: int = 8,
+                 microbatches: int = 1, lr: float = 3e-4, device: DeviceLike = "cuda",
+                 seed: int = 0) -> Trainer:
+    """A run of ``steps`` steps: AdamW at ``lr`` with the reference's
+    launcher's warmup (``max(steps // 20, 5)``) and cosine over ``steps``,
+    weights drawn from ``seed`` on ``device``."""
+    dev = resolve_device(device)
+    shape = ShapeConfig("cli", seq_len=seq_len, global_batch=batch, kind="train")
+    rt = TrainRuntime(
+        microbatches=microbatches,
+        adamw=AdamWConfig(lr=lr, warmup_steps=max(steps // 20, 5), total_steps=steps),
+    )
+    init_fn, train_step = make_train_fns(cfg, rt)
+    params, opt_state = init_fn(torch.Generator(device=dev).manual_seed(seed), dev)
+    return Trainer(cfg, shape, rt, train_step, params, opt_state, dev, seed)
+
+
+def run(trainer: Trainer, start_step: int, steps: int, *, checkpoint: str = "",
+        checkpoint_every: int = 50, log_every: int = 10) -> Optional[Dict[str, float]]:
+    """Steps ``start_step .. steps - 1``, logging as the reference's
+    launcher and saving every ``checkpoint_every`` steps in the background
+    and once at the end -> the last step's metrics (None if no step ran)."""
+    ckpt = AsyncCheckpointer()
+    tokens_per_step = trainer.shape.global_batch * trainer.shape.seq_len
+    t0 = time.time()
+    metrics = None
+    for step in range(start_step, steps):
+        metrics = trainer.step(step)
+        if (step + 1) % log_every == 0 or step == start_step:
+            dt = time.time() - t0
+            tps = tokens_per_step * (step + 1 - start_step) / max(dt, 1e-9)
+            print(
+                f"[train] step {step + 1}/{steps} loss={float(metrics['loss']):.4f} "
+                f"lr={float(metrics['lr']):.2e} gnorm={float(metrics['grad_norm']):.2f} "
+                f"tok/s={tps:,.0f}",
+                flush=True,
+            )
+        if checkpoint and (step + 1) % checkpoint_every == 0:
+            ckpt.save(checkpoint, trainer.state, step=step + 1)
+    ckpt.wait()
+    if checkpoint:
+        save(checkpoint, trainer.state, step=steps)
+        print(f"[train] final checkpoint at {checkpoint}")
+    return None if metrics is None else {k: float(v) for k, v in metrics.items()}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="smollm-360m", help=f"one of {sorted(ARCHS)}")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--seq-len", type=int, default=256)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--reduced", action="store_true", help="CPU-sized model")
+    ap.add_argument("--checkpoint", default="")
+    ap.add_argument("--checkpoint-every", type=int, default=50)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
+    return ap
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Optional[Dict[str, float]]:
+    args = build_parser().parse_args(argv)
+    cfg = get_arch(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    trainer = make_trainer(cfg, steps=args.steps, seq_len=args.seq_len, batch=args.batch,
+                           microbatches=args.microbatches, lr=args.lr, device=args.device)
+    start_step = 0
+    if args.resume and args.checkpoint and os.path.exists(args.checkpoint):
+        start_step = trainer.restore(args.checkpoint)
+        print(f"[train] resumed from step {start_step}")
+    return run(trainer, start_step, args.steps, checkpoint=args.checkpoint,
+               checkpoint_every=args.checkpoint_every, log_every=args.log_every)
+
+
+if __name__ == "__main__":
+    main()

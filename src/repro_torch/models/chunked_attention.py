@@ -18,8 +18,30 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 NEG_INF = -1e30
+
+
+def _kv_block(qf, kblk, vblk, m, l, acc, k_start: int, s_kv: int, causal: bool,
+              window: Optional[int], scale: float):
+    """One key block into the running (max, sum, acc) -> the new three."""
+    s = qf.shape[2]
+    rows = torch.arange(s, device=qf.device)[:, None]  # absolute q index
+    sc = (qf @ kblk.float().transpose(-1, -2)) * scale  # (B, H, S, bk)
+    cols = k_start + torch.arange(kblk.shape[2], device=qf.device)[None, :]
+    mask = cols < s_kv
+    if causal:
+        mask = mask & (cols <= rows)
+    if window is not None:
+        mask = mask & (cols > rows - window)
+    sc = torch.where(mask, sc, NEG_INF)
+    m_new = torch.maximum(m, sc.amax(dim=-1))
+    p = torch.exp(sc - m_new[..., None])
+    alpha = torch.exp(m - m_new)
+    l = alpha * l + p.sum(dim=-1)
+    acc = acc * alpha[..., None] + p.to(vblk.dtype).float() @ vblk.float()
+    return m_new, l, acc
 
 
 def attention_chunked(
@@ -41,27 +63,17 @@ def attention_chunked(
         k = k.repeat_interleave(group, dim=1)
         v = v.repeat_interleave(group, dim=1)
     qf = q.float()
-    rows = torch.arange(s, device=q.device)[:, None]  # absolute q index
     m = torch.full((b, h, s), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((b, h, s), dtype=torch.float32, device=q.device)
     acc = torch.zeros((b, h, s, d), dtype=torch.float32, device=q.device)
+    remat = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
     bk = min(block_k, s_kv)
     for k_start in range(0, s_kv, bk):
-        kblk = k[:, :, k_start : k_start + bk]
-        vblk = v[:, :, k_start : k_start + bk]
-        sc = (qf @ kblk.float().transpose(-1, -2)) * scale  # (B, H, S, bk)
-        cols = k_start + torch.arange(kblk.shape[2], device=q.device)[None, :]
-        mask = cols < s_kv
-        if causal:
-            mask = mask & (cols <= rows)
-        if window is not None:
-            mask = mask & (cols > rows - window)
-        sc = torch.where(mask, sc, NEG_INF)
-        m_new = torch.maximum(m, sc.amax(dim=-1))
-        p = torch.exp(sc - m_new[..., None])
-        alpha = torch.exp(m - m_new)
-        l = alpha * l + p.sum(dim=-1)
-        acc = acc * alpha[..., None] + p.to(vblk.dtype).float() @ vblk.float()
-        m = m_new
+        args = (qf, k[:, :, k_start : k_start + bk], v[:, :, k_start : k_start + bk], m, l, acc,
+                k_start, s_kv, causal, window, scale)
+        if remat:
+            m, l, acc = checkpoint(_kv_block, *args, use_reentrant=False)
+        else:
+            m, l, acc = _kv_block(*args)
     safe = torch.where(l > 0, l, 1.0)
     return (acc / safe[..., None]).to(q.dtype)

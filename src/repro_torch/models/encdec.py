@@ -2,8 +2,8 @@
 teacher-forced decoder and the decode step.
 
 The reference's ``models/encdec.py`` for one card: Python loops over
-per-layer parameter lists where the reference scans stacked trees, no
-remat.  The conv1d + GELU mel frontend is a stub, as in the reference:
+per-layer parameter lists where the reference scans stacked trees; under
+``cfg.remat`` each block recomputes its activations in the backward pass.  The conv1d + GELU mel frontend is a stub, as in the reference:
 the encoder takes precomputed (B, n_frames, d_model) frame embeddings.
 Positions are sinusoidal, added to the frames and to the decoder's token
 embeddings; the attention blocks use no RoPE (``rope_theta`` 0).  A decoder
@@ -15,8 +15,7 @@ decoder layer's cross-attention keys and values; :func:`decode_step` then
 advances each row by one token against its self-attention KV cache, with a
 position per row as the decoder-only LMs'.  The serving engine refuses the
 family, as the reference's does: it has no ``prefill_state`` (the decode
-state comes from the frames).  The training loss waits (ROADMAP Queue 1
-item 9).
+state comes from the frames).  :func:`lm_loss` is the training loss.
 """
 from __future__ import annotations
 
@@ -24,7 +23,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from repro_torch.configs.base import NOT_TRAINED, ArchConfig
+from repro_torch.configs.base import ArchConfig
 
 from .attention import (
     KVCache,
@@ -35,7 +34,17 @@ from .attention import (
     init_attention,
     init_kv_cache,
 )
-from .layers import Params, dtype_of, embed_init, init_mlp, mlp, rmsnorm, unembed
+from .layers import (
+    Params,
+    cross_entropy_loss,
+    dtype_of,
+    embed_init,
+    init_mlp,
+    mlp,
+    remat_call,
+    rmsnorm,
+    unembed,
+)
 
 
 def _sinusoid(pos: torch.Tensor, d: int) -> torch.Tensor:
@@ -99,9 +108,22 @@ def encode(params: Params, cfg: ArchConfig, frames: torch.Tensor) -> torch.Tenso
     pe = sinusoidal_positions(frames.shape[1], cfg.d_model, device=frames.device)
     x = frames.to(dt) + pe.to(dt)
     for p in params["enc_blocks"]:
-        x = x + attention_train(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cfg, causal=False)
-        x = x + mlp(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps), cfg.mlp)
+        x = remat_call(cfg, _enc_block, p, x, cfg)
     return rmsnorm(x, params["ln_enc"], cfg.norm_eps)
+
+
+def _enc_block(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    x = x + attention_train(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cfg, causal=False)
+    return x + mlp(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps), cfg.mlp)
+
+
+def _dec_block(p: Params, x: torch.Tensor, enc_out: torch.Tensor,
+               cfg: ArchConfig) -> torch.Tensor:
+    x = x + attention_train(p["self_attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cfg,
+                            causal=True)
+    kv = encode_cross_kv(p["cross_attn"], enc_out, cfg)
+    x = x + cross_attention(p["cross_attn"], rmsnorm(x, p["ln_x"], cfg.norm_eps), kv, cfg)
+    return x + mlp(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps), cfg.mlp)
 
 
 def _decoder(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
@@ -112,11 +134,7 @@ def _decoder(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     pe = sinusoidal_positions(tokens.shape[1], cfg.d_model, device=tokens.device)
     x = params["embed"][tokens].to(dt) + pe.to(dt)
     for p in params["dec_blocks"]:
-        x = x + attention_train(p["self_attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cfg,
-                                causal=True)
-        kv = encode_cross_kv(p["cross_attn"], enc_out, cfg)
-        x = x + cross_attention(p["cross_attn"], rmsnorm(x, p["ln_x"], cfg.norm_eps), kv, cfg)
-        x = x + mlp(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps), cfg.mlp)
+        x = remat_call(cfg, _dec_block, p, x, enc_out, cfg)
     return x
 
 
@@ -129,6 +147,13 @@ def decode_train(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
                  enc_out: torch.Tensor) -> torch.Tensor:
     """Teacher-forced decoder -> logits (B, S, V) in fp32, every position."""
     return _head(params, cfg, _decoder(params, cfg, tokens, enc_out))
+
+
+def lm_loss(params: Params, cfg: ArchConfig, batch) -> torch.Tensor:
+    """Mean next-token cross entropy of the teacher-forced decoder over the
+    encoded ``batch["frames"]`` at ``batch["labels"]``."""
+    enc_out = encode(params, cfg, batch["frames"])
+    return cross_entropy_loss(decode_train(params, cfg, batch["tokens"], enc_out), batch["labels"])
 
 
 def prefill(params: Params, cfg: ArchConfig, batch) -> torch.Tensor:
@@ -186,13 +211,3 @@ def decode_step(params: Params, cfg: ArchConfig, state: EncDecState,
                                 (state.cross_k[layer], state.cross_v[layer]), cfg)
         x = x + mlp(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps), cfg.mlp)
     return _head(params, cfg, x), state._replace(kv=KVCache(kv.k, kv.v, pos_buf), pos=pos + 1)
-
-
-# The reference's training loss, not ported yet.
-_REFERENCE_ONLY = ("lm_loss",)
-
-
-def __getattr__(name: str):
-    if name in _REFERENCE_ONLY:
-        raise NotImplementedError(f"encdec.{name}: {NOT_TRAINED}")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -5,6 +5,7 @@ from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 Params = Dict[str, Any]
 
@@ -65,6 +66,45 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 
 # -- products accumulated in fp32 ------------------------------------------------
+def _mm_out_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """cuBLAS's bf16 GEMM with an fp32 output (``out_dtype``): no fp32 copy
+    of either operand.  PyTorch has no derivative for this overload."""
+    if b.ndim == 2:
+        out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
+        return out.reshape(*a.shape[:-1], b.shape[-1])
+    return torch.bmm(a, b, out_dtype=torch.float32)
+
+
+class MatmulF32(torch.autograd.Function):
+    """``product(a, b)``, an fp32 product of two operands of a lower
+    precision, with the backward of the reference's
+    ``einsum(a.astype(float32), b.astype(float32))``: each operand's
+    gradient is an fp32 product of the fp32 cotangent with the other
+    operand upcast, cast back to the operand's own dtype."""
+
+    @staticmethod
+    def forward(ctx, a, b, product):
+        ctx.save_for_backward(a, b)
+        return product(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if b.ndim == 2:
+            g2 = g.reshape(-1, g.shape[-1])
+            if ctx.needs_input_grad[0]:
+                ga = (g2 @ b.float().T).reshape(a.shape).to(a.dtype)
+            if ctx.needs_input_grad[1]:
+                gb = (a.reshape(-1, a.shape[-1]).float().T @ g2).to(b.dtype)
+        else:
+            if ctx.needs_input_grad[0]:
+                ga = torch.bmm(g, b.float().transpose(1, 2)).to(a.dtype)
+            if ctx.needs_input_grad[1]:
+                gb = torch.bmm(a.float().transpose(1, 2), g).to(b.dtype)
+        return ga, gb, None
+
+
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` accumulated in fp32 with an fp32 result, for (..., M, K) x
     (K, N) or batched (P, M, K) x (P, K, N): the reference's
@@ -74,13 +114,24 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     (``out_dtype``), so neither operand is copied to fp32: a bf16 x bf16
     product is exact in fp32, and only the order of the sums can differ
     from the fp32 product of the upcast operands, which is what the CPU
-    (which has no such kernel) computes."""
+    (which has no such kernel) computes.  That route is differentiable
+    through :class:`MatmulF32`."""
     if not (a.dtype == b.dtype == torch.bfloat16 and a.device.type == "cuda"):
         return a.float() @ b.float()  # .float() of an fp32 tensor is itself
-    if b.ndim == 2:
-        out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
-        return out.reshape(*a.shape[:-1], b.shape[-1])
-    return torch.bmm(a, b, out_dtype=torch.float32)
+    return MatmulF32.apply(a, b, _mm_out_f32)
+
+
+# -- rematerialisation -----------------------------------------------------------
+def remat_call(cfg, fn, *args):
+    """``fn(*args)``; under ``cfg.remat``, while autograd records a tensor
+    argument, through ``torch.utils.checkpoint``: the backward pass
+    recomputes ``fn``'s activations instead of keeping them (the
+    reference's ``jax.checkpoint`` of a block).  Recomputing runs the same
+    operations on the same values, so the gradients are the same bits."""
+    if cfg.remat and torch.is_grad_enabled() and any(
+            isinstance(a, torch.Tensor) and a.requires_grad for a in args):
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 # -- MLP variants --------------------------------------------------------------
@@ -121,3 +172,15 @@ def unembed(x: torch.Tensor, w_embed: torch.Tensor) -> torch.Tensor:
     """Tied unembedding: (..., d) x (V, d) -> (..., V) in fp32, with no fp32
     copy of the embedding (:func:`matmul_f32`)."""
     return matmul_f32(x, w_embed.T)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross entropy of fp32 logits (B, S, V) at labels
+    (B, S): logsumexp about the detached row maximum, less the gold logit.
+    The reference takes the gold logit by a one-hot contraction (for its
+    sharded vocabulary); a gather reads the same value."""
+    m = logits.amax(dim=-1, keepdim=True).detach()
+    shifted = logits - m
+    logz = torch.log(torch.exp(shifted).sum(dim=-1)) + m[..., 0]
+    gold = torch.gather(shifted, -1, labels[..., None].long())[..., 0] + m[..., 0]
+    return (logz - gold).mean()

@@ -2,8 +2,11 @@
 parameters, forward, prefill and decode.
 
 The reference's ``models/lm.py`` for one card: a Python loop over a list of
-per-layer parameter dicts where the reference scans a stacked tree, no
-remat and no sharding constraints.  The hybrid (zamba2) keeps its Mamba2
+per-layer parameter dicts where the reference scans a stacked tree, and no
+sharding constraints.  Under ``cfg.remat`` the training loss
+(:func:`lm_loss`) recomputes each block's activations in the backward
+pass, the hybrid's groups as a whole too, as the reference's
+``jax.checkpoint``s.  The hybrid (zamba2) keeps its Mamba2
 blocks in one list too (the reference's ``blocks`` groups, then
 ``blocks_tail``) and applies the single parameter-tied ``shared`` attention
 block after layers ``every - 1``, ``2 every - 1``, ..., each invocation with
@@ -21,8 +24,7 @@ them as they are at replay.  The paged functions keep one block pool for
 every slot and per-slot block tables, all on the device; for the SSM
 family a "paged" pool is the slot-stacked recurrent state with no blocks,
 and the hybrid's caches are refused there, as in the reference.  The
-encoder-decoder family is :mod:`repro_torch.models.encdec`; the training
-loss waits (ROADMAP Queue 1 item 9).
+encoder-decoder family is :mod:`repro_torch.models.encdec`.
 """
 from __future__ import annotations
 
@@ -31,7 +33,7 @@ from typing import Dict, NamedTuple, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.configs.base import NOT_TRAINED, ArchConfig
+from repro_torch.configs.base import ArchConfig
 
 from . import moe
 from .attention import (
@@ -49,6 +51,7 @@ from .attention import (
 )
 from .layers import (
     Params,
+    cross_entropy_loss,
     dense_init,
     dtype_of,
     embed_init,
@@ -56,6 +59,7 @@ from .layers import (
     init_mlp,
     matmul_f32,
     mlp,
+    remat_call,
     rmsnorm,
     unembed,
 )
@@ -168,16 +172,34 @@ def _embed_inputs(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor
     return x.to(dtype_of(cfg.compute_dtype))
 
 
+def _block(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    if cfg.family in MAMBA_FAMILIES:
+        return x + mamba_block(p["mamba"], rmsnorm(x, p["ln1"], cfg.norm_eps), cfg)
+    return _apply_attn_block(p, x, cfg)
+
+
+def _group(blocks, shared: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The hybrid's group: ``shared_attn_every`` blocks, then the shared
+    block."""
+    for p in blocks:
+        x = remat_call(cfg, _block, p, x, cfg)
+    return _apply_attn_block(shared, x, cfg)
+
+
 def _trunk(params: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     """Every block over the embedded stream -> the final residual stream
-    (B, S, d)."""
-    for layer, p in enumerate(params["blocks"]):
-        if cfg.family in MAMBA_FAMILIES:
-            x = x + mamba_block(p["mamba"], rmsnorm(x, p["ln1"], cfg.norm_eps), cfg)
-        else:
-            x = _apply_attn_block(p, x, cfg)
-        if _shared_invocation(cfg, layer) is not None:
-            x = _apply_attn_block(params["shared"], x, cfg)
+    (B, S, d).  The hybrid runs its groups, then the tail blocks that
+    complete no group (the shared block follows layers ``every - 1``,
+    ``2 every - 1``, ...)."""
+    blocks = params["blocks"]
+    every = cfg.shared_attn_every
+    if every:
+        n_grouped = len(blocks) // every * every
+        for g in range(0, n_grouped, every):
+            x = remat_call(cfg, _group, blocks[g : g + every], params["shared"], x, cfg)
+        blocks = blocks[n_grouped:]
+    for p in blocks:
+        x = remat_call(cfg, _block, p, x, cfg)
     return x
 
 
@@ -194,6 +216,21 @@ def prefill(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]) -> 
     would take 19.9 GB a sequence at 32k tokens and qwen2's vocabulary."""
     x = _trunk(params, cfg, _embed_inputs(params, cfg, batch))
     return _head(params, cfg, x[:, -1:])
+
+
+def lm_loss(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Mean next-token cross entropy at ``batch["labels"]``; the VLM's
+    patches carry no labels, so the head runs on the text positions only.
+    The MoE family adds 0.01 times the load-balancing loss of the first
+    block's router on the embedded inputs (the reference's one-layer
+    proxy)."""
+    x = _trunk(params, cfg, _embed_inputs(params, cfg, batch))
+    labels = batch["labels"]
+    loss = cross_entropy_loss(_head(params, cfg, x[:, x.shape[1] - labels.shape[1]:]), labels)
+    if cfg.family == "moe":
+        x0 = _embed_inputs(params, cfg, batch)
+        loss = loss + 0.01 * moe.aux_load_balance_loss(params["blocks"][0]["moe"], x0, cfg.moe)
+    return loss
 
 
 # ---------------------------------------------------------------------------
@@ -526,13 +563,3 @@ def paged_reset_slot(state: PagedDecodeState, slot: int,
         state.ssm_conv[:, slot] = 0
     state.pos[slot] = 0
     return state
-
-
-# The reference's training loss, not ported yet.
-_REFERENCE_ONLY = ("lm_loss",)
-
-
-def __getattr__(name: str):
-    if name in _REFERENCE_ONLY:
-        raise NotImplementedError(f"lm.{name}: {NOT_TRAINED}")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -11,16 +11,15 @@ scratch row at ``E * cap`` that is sliced off, and the combine sums each
 token's k contributions in one fixed order with no atomics, so a call is
 deterministic and a CUDA graph of it equals the eager call bit for bit.
 Nothing here has a dynamic shape or reads a value on the host, so a decode
-step or chunk through it can be captured.
-
-The load-balancing loss is training (ROADMAP Queue 1 item 9) and raises.
+step or chunk through it can be captured.  The training path adds the
+Switch-style load-balancing loss (:func:`aux_load_balance_loss`).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import NOT_TRAINED, ArchConfig, MoEConfig
+from repro_torch.configs.base import ArchConfig, MoEConfig
 
 from .layers import Params, dense_init, normal_init
 
@@ -138,11 +137,15 @@ def moe_ffn(params: Params, x: torch.Tensor, moe: MoEConfig) -> torch.Tensor:
     return moe_ffn_sparse(params, x, moe)
 
 
-# The reference's training loss, not ported yet.
-_REFERENCE_ONLY = ("aux_load_balance_loss",)
-
-
-def __getattr__(name: str):
-    if name in _REFERENCE_ONLY:
-        raise NotImplementedError(f"moe.{name}: {NOT_TRAINED}")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+def aux_load_balance_loss(params: Params, x: torch.Tensor, moe: MoEConfig) -> torch.Tensor:
+    """Switch-style load-balancing loss of the router on x (B, S, d):
+    ``E * sum_e frac_e * mean_prob_e``, where ``frac_e`` is expert e's share
+    of the top-k picks (no gradient) and ``mean_prob_e`` its mean softmax
+    probability over every expert."""
+    x2 = x.reshape(-1, x.shape[-1])
+    logits = x2.float() @ params["router"]
+    probs = torch.softmax(logits, dim=-1)
+    _, top_idx = torch.topk(logits, moe.top_k, dim=-1)
+    counts = torch.bincount(top_idx.reshape(-1), minlength=moe.n_experts).float()
+    frac = counts / counts.sum()
+    return moe.n_experts * torch.sum(frac * probs.mean(0))

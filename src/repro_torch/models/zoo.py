@@ -1,6 +1,6 @@
-"""Model zoo: serving entry points, input shapes and weights carried across
-from the reference for every family (dense, MoE, SSM, hybrid, VLM and the
-encoder-decoder)."""
+"""Model zoo: training and serving entry points, input shapes and weights
+carried across from the reference for every family (dense, MoE, SSM,
+hybrid, VLM and the encoder-decoder)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -18,10 +18,11 @@ from .layers import Params, dtype_of
 
 @dataclass(frozen=True)
 class ModelBundle:
-    """The serving interface of one architecture (training is not ported)."""
+    """The training and serving interface of one architecture."""
 
     cfg: ArchConfig
     init: Callable  # (generator, device) -> params
+    loss: Callable  # (params, batch) -> scalar training loss
     prefill: Callable  # (params, batch) -> last-position logits (B, 1, V)
     decode_init: Callable  # (params, batch, seq_len) -> state
     decode_step: Callable  # (params, state, tokens (B, 1)) -> (logits, state)
@@ -37,6 +38,7 @@ def build_model(cfg: ArchConfig) -> ModelBundle:
         return ModelBundle(
             cfg=cfg,
             init=lambda gen, device="cuda": encdec.init_params(gen, cfg, device),
+            loss=lambda p, b: encdec.lm_loss(p, cfg, b),
             prefill=lambda p, b: encdec.prefill(p, cfg, b),
             decode_init=lambda p, b, s: encdec.init_decode_state(p, cfg, b["frames"], s),
             decode_step=lambda p, st, t: encdec.decode_step(p, cfg, st, t),
@@ -44,6 +46,7 @@ def build_model(cfg: ArchConfig) -> ModelBundle:
     return ModelBundle(
         cfg=cfg,
         init=lambda gen, device="cuda": lm.init_params(gen, cfg, device),
+        loss=lambda p, b: lm.lm_loss(p, cfg, b),
         prefill=lambda p, b: lm.prefill(p, cfg, b),
         decode_init=lambda p, b, s: lm.init_decode_state(
             cfg, b["tokens"].shape[0], s, p["embed"].device
@@ -131,7 +134,9 @@ def params_from_reference(tree: Dict, cfg: ArchConfig, device="cuda") -> Params:
     0), each leaf in its own dtype.  The hybrid's grouped ``blocks``
     (n_groups, every, ...) and its ``blocks_tail`` become one list of
     layers; ``shared`` and the VLM's ``projector`` stay one set of tensors;
-    the encoder-decoder's ``enc_blocks`` and ``dec_blocks`` become lists."""
+    the encoder-decoder's ``enc_blocks`` and ``dec_blocks`` become lists.
+    A tree of the same structure (the reference's gradients, or AdamW's
+    ``m``, ``v`` and ``master``) carries across the same way."""
     extra = sorted(set(tree) - set(_GROUPS))
     if extra:
         raise ValueError(f"unknown parameter groups {extra}")

@@ -150,5 +150,6 @@ def test_engine_refuses_the_family_as_the_reference_does():
         with pytest.raises(ValueError) as theirs:
             JaxEngine({ARCH: JAX_ARCHS[ARCH].reduced()}, mode=mode, cache_len=CACHE_LEN)
         assert str(mine.value) == str(theirs.value)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        encdec.lm_loss
+    # The family trains (the training loss is ported): its bundle's loss
+    # is the teacher-forced decoder's cross entropy.
+    assert build_model(cfg).loss is not None and callable(encdec.lm_loss)

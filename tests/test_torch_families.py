@@ -286,8 +286,9 @@ def test_full_parameter_counts(name):
 def test_families_registered_and_the_rest_refused():
     """Every reference architecture is registered; what stays refused is
     serving the encoder-decoder (no token-only prefill, the reference's
-    message), its paged and the hybrid's paged mode, the training loss
-    (item 9), and families or MLPs that no config has."""
+    message), its paged and the hybrid's paged mode, the sharded train
+    step (item 10; the training losses are ported), and families or MLPs
+    that no config has."""
     assert set(ARCHS) == set(JAX_ARCHS)
     for family in ("encdec", "vlm"):
         ArchConfig(arch_id="m", family=family, n_layers=1, d_model=8, n_heads=1,
@@ -308,10 +309,13 @@ def test_families_registered_and_the_rest_refused():
         with pytest.raises(ValueError, match="hybrid/encdec caches are not block-structured"):
             serve_main(["--arch", name, "--device", "cpu", "--mode", "paged"])
     from repro_torch.models import encdec
+    from repro_torch.runtime import train_loop
 
-    for module in (lm, encdec):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            module.lm_loss
+    # Training is ported (item 9): the losses are functions; the sharded
+    # train step stays refused (item 10).
+    assert callable(lm.lm_loss) and callable(encdec.lm_loss)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        train_loop.shard_train_step
     reduced = ARCHS["zamba2-1.2b"].reduced()
     assert (reduced.n_layers, reduced.shared_attn_every, reduced.ssm.d_state,
             reduced.ssm.head_dim, reduced.ssm.chunk) == (4, 2, 16, 16, 16)

@@ -151,23 +151,22 @@ def test_device_defaults_to_card_and_never_falls_back():
 
 def test_later_slices_raise_not_implemented(tmp_path):
     """What is still unported raises and names its ROADMAP item: the
-    training loss of the decoder-only and encoder-decoder families (item
-    9; the encoder-decoder family itself, item 8, is now built), the
-    tensor-parallel layout and the sharded serving steps (item 10).  The
-    ensemble runner's on-disk checkpoints, which raised here before the
-    checkpoint module was ported, now take effect."""
+    tensor-parallel layout, the sharded serving steps and the sharded train
+    step (item 10).  The training losses of the decoder-only and
+    encoder-decoder families (item 9), which raised here before training
+    was ported, are functions now.  The ensemble runner's on-disk
+    checkpoints, which raised here before the checkpoint module was ported,
+    now take effect."""
     from repro_torch.configs.base import ArchConfig
     from repro_torch.models import encdec, lm
-    from repro_torch.runtime import serve_loop, sharding
+    from repro_torch.runtime import serve_loop, sharding, train_loop
 
     ArchConfig(arch_id="m", family="encdec", n_layers=1, d_model=8, n_heads=1,
                n_kv_heads=1, d_ff=8, vocab=8)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        encdec.lm_loss
-    with pytest.raises(NotImplementedError, match="item 9"):
-        lm.lm_loss
+    assert callable(encdec.lm_loss) and callable(lm.lm_loss)
     for unported in (lambda: serve_loop.shard_decode_step,
                      lambda: serve_loop.shard_prefill_step,
+                     lambda: train_loop.shard_train_step,
                      lambda: sharding.param_spec(None, [], None)):
         with pytest.raises(NotImplementedError, match="item 10"):
             unported()

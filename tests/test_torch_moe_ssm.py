@@ -126,8 +126,10 @@ def test_moe_ffn_follows_impl_and_the_loss_waits():
     dense = dataclasses.replace(m, impl="dense")
     assert torch.equal(moe.moe_ffn(p, x, dense), moe.moe_ffn_dense(p, x, m))
     assert torch.equal(moe.moe_ffn(p, x, m), moe.moe_ffn_sparse(p, x, m))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        moe.aux_load_balance_loss
+    # The load-balancing loss is ported with training: the reference's value.
+    jmoe, jp, _, _ = _moe_setup(cf=0.3)
+    want = jax_moe.aux_load_balance_loss(jp, jnp.asarray(x.numpy()), jmoe)
+    np.testing.assert_allclose(float(moe.aux_load_balance_loss(p, x, m)), float(want), rtol=1e-6)
     with pytest.raises(AttributeError):
         moe.no_such_function
 

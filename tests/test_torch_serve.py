@@ -114,7 +114,8 @@ def test_engine_refuses_what_is_not_ported_and_what_cannot_fit():
 @pytest.mark.parametrize("module,name", [
     ("repro_torch.runtime.serve_loop", "shard_prefill_step"),
     ("repro_torch.runtime.serve_loop", "shard_decode_step"),
-    ("repro_torch.models.lm", "lm_loss"),
+    # Was ("repro_torch.models.lm", "lm_loss"), ported with training.
+    ("repro_torch.runtime.train_loop", "shard_train_step"),
 ])
 def test_reference_only_entry_points_raise(module, name):
     mod = importlib.import_module(module)
