@@ -194,7 +194,24 @@ Phases (any failure exits non-zero; there is no CPU path):
    loss finite, every gradient leaf finite and not all zero; (f) a loss
    through ``attn_impl="kernel"`` under autograd raises the kernel's
    refusal;
-8. print the ``kernels`` JSON line, then the result line.
+8. the sharded steps on a (1, 1) ``DeviceMesh`` of the card (an NCCL group
+   of one rank on a local store, set up and torn down at the phase's
+   edges): (a) smollm-360m at phase 7's shape through ``shard_train_step``
+   under the pure-DP and the TP policy, 3 steps each: loss, grad norm,
+   parameters and AdamW state bit for bit against the unsharded step under
+   deterministic algorithms, and the step times (DTensor's host cost);
+   (b) qwen2-0.5b's ``shard_prefill_step`` at prefill_32k (batch cut to 1):
+   logits bit for bit, the flash kernel launched once a layer through
+   ``local_map``; (c) ``shard_decode_step`` at decode_32k (batch cut to 8),
+   8 steps: logits and state bit for bit; (d) the dry-run of qwen2-0.5b's
+   train_4k and decode_32k on 256 fake ranks, each in a subprocess started
+   at the phase's start: status ok, the roofline terms, the collective
+   census, the peak, ``trace_s``, the whole-head re-layouts; (e) the
+   estimates of smollm-360m's step on one fake rank against phase 7a's
+   peak memory and against 8 N T flops, within ``MEM_ESTIMATE_BOUNDS`` /
+   ``FLOP_ESTIMATE_BOUNDS``; (f) a DTensor and a FakeTensor handed to each
+   kernel wrapper raise the refusal of tensor subclasses;
+9. print the ``kernels`` JSON line, then the result line.
 """
 from __future__ import annotations
 
@@ -3820,6 +3837,361 @@ def phase_training(torch, smi: str, ended=lambda phase: None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the sharded steps on a DeviceMesh of the card, and the dry-run
+# ---------------------------------------------------------------------------
+# (a) smollm-360m's sharded train step at phase 7's shape, 3 steps a policy.
+SHARD_TRAIN_STEPS = 3
+# (c) qwen2-0.5b's decode_32k with the global batch cut from 128 to 8.
+SHARD_DECODE_BATCH = 8
+SHARD_DECODE_STEPS = 8
+# (d) the dry-run cells, each in a subprocess of its own on 256 fake ranks.
+DRYRUN_CELLS = (("qwen2-0.5b", "train_4k"), ("qwen2-0.5b", "decode_32k"))
+# (e) the estimates against the card: the dry-run's peak of live bytes of
+# smollm-360m's step on one fake rank over the card's peak above the start
+# (phase 7a), and the counted flops over 8 N T (6 N T, and remat's second
+# forward of the blocks, 2 N T).  The peak counts exact tensor bytes; the
+# card's caching allocator rounds each block up, keeps freed blocks in its
+# pools and holds cuBLAS's workspace (9.44 GiB estimated against 10.23 GiB
+# measured on an NVIDIA H100 80GB HBM3 at 700 W).  The flops miss 2 V d T
+# of N's share (the tied head is not recomputed: -3.3%) and add the
+# attention's products (+2.2%): 0.962 x 8 N T.
+MEM_ESTIMATE_BOUNDS = (0.8, 1.2)
+FLOP_ESTIMATE_BOUNDS = (0.9, 1.1)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _dryrun_commands(out_dir: Path):
+    """(label, argv, json) of the dry-run cells of (d) and the estimate of
+    (e)."""
+    base = [sys.executable, "-m", "repro_torch.launch.dryrun", "--out", str(out_dir)]
+    cmds = [(f"{a} {s}", base + ["--arch", a, "--shape", s, "--mesh", "single"],
+             out_dir / f"{a}__{s}__single.json") for a, s in DRYRUN_CELLS]
+    cmds.append(("estimate", base + ["--arch", TRAIN_ARCH, "--shape", "train_4k", "--mesh",
+                                     "one", "--seq-len", str(TRAIN_SEQ_LEN), "--batch",
+                                     str(TRAIN_BATCH)],
+                 out_dir / f"{TRAIN_ARCH}__train_4k_{TRAIN_SEQ_LEN}x{TRAIN_BATCH}__one.json"))
+    return cmds
+
+
+def _start_dryruns():
+    """Start every dry-run subprocess at once (they trace on the host while
+    the card runs (a)-(c)) -> [(label, process, json path)]."""
+    out_dir = REPO / "results" / "dryrun_torch"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+    return [(label, subprocess.Popen(argv, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                     text=True, env=env, cwd=REPO), path)
+            for label, argv, path in _dryrun_commands(out_dir)]
+
+
+def _wait_dryruns(procs, timeout: float = 600) -> dict:
+    out = {}
+    for label, proc, path in procs:
+        try:
+            log, _ = proc.communicate(timeout=timeout)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+        if proc.returncode != 0 or not path.exists():
+            fail(f"8d: the dry-run of {label} exited {proc.returncode}: {log[-2000:]}")
+        out[label] = json.loads(path.read_text())
+    return out
+
+
+def _median(xs):
+    xs = sorted(xs)
+    n = len(xs)
+    return xs[n // 2] if n % 2 else (xs[n // 2 - 1] + xs[n // 2]) / 2
+
+
+def _clone_tree(tree):
+    from repro_torch.optim.tree import tree_leaves, tree_unflatten
+
+    return tree_unflatten(tree, [t.clone() for t in tree_leaves(tree)])
+
+
+def _local(t):
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def _timed_call(torch, fn):
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def shard_train_checks(torch, mesh, smi: str, phase7_ms) -> dict:
+    """(a) smollm-360m at phase 7's shape through ``shard_train_step`` on
+    the (1, 1) mesh under the pure-DP and the TP policy, 3 steps each from
+    the unsharded step's parameters and batches: loss, grad norm,
+    parameters and AdamW state bit for bit (deterministic algorithms)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.train import make_trainer
+    from repro_torch.optim.tree import tree_leaves
+    from repro_torch.runtime.sharding import make_policy
+    from repro_torch.runtime.train_loop import shard_train_step
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        trainer = make_trainer(ARCHS[TRAIN_ARCH], steps=TRAIN_STEPS, seq_len=TRAIN_SEQ_LEN,
+                               batch=TRAIN_BATCH, device="cuda")
+        p0, o0 = _clone_tree(trainer.params), _clone_tree(trainer.opt_state)
+        ref, ref_ms = [], []
+        for step in range(SHARD_TRAIN_STEPS):
+            m, ms = _timed_call(torch, lambda: trainer.step(step))
+            ref.append(m)
+            ref_ms.append(ms)
+        want = tree_leaves((trainer.params, trainer.opt_state))
+        out = {"unsharded_ms": _median(ref_ms)}
+        for layout in ("dp", "tp"):
+            policy = make_policy(mesh, pure_dp=layout == "dp")
+            fn, _ = shard_train_step(trainer.cfg, trainer.shape, policy, trainer.rt)
+            params, opt = fn.place(_clone_tree(p0), _clone_tree(o0))
+            ms_all, unequal_metrics = [], 0
+            for step in range(SHARD_TRAIN_STEPS):
+                (params, opt, m), ms = _timed_call(
+                    torch, lambda: fn(params, opt, trainer.batch(step)))
+                ms_all.append(ms)
+                for key in ("loss", "grad_norm", "lr"):
+                    unequal_metrics += int(not torch.equal(m[key], ref[step][key]))
+            got = [_local(t) for t in tree_leaves((params, opt))]
+            bad = sum(int(not torch.equal(a, b)) for a, b in zip(got, want))
+            n_el = sum(t.numel() for t in want)
+            print(f"[8a] {TRAIN_ARCH} seq {TRAIN_SEQ_LEN} x batch {TRAIN_BATCH}, "
+                  f"{'pure-DP' if layout == 'dp' else 'TP'} policy on the (1, 1) mesh: "
+                  f"{SHARD_TRAIN_STEPS} steps; metrics unequal {unequal_metrics}, leaves of "
+                  f"params + AdamW state unequal {bad} of {len(want)} ({n_el:,} elements); "
+                  f"step {_median(ms_all):.1f} ms (CUDA events, median of "
+                  f"{SHARD_TRAIN_STEPS}) against the unsharded step's "
+                  f"{out['unsharded_ms']:.1f} ms here and phase 7a's {phase7_ms:.1f} ms; {smi}")
+            if bad or unequal_metrics:
+                fail(f"8a: the sharded train step ({layout}) differs from the unsharded one: "
+                     f"{bad} leaves, {unequal_metrics} metrics")
+            out[f"{layout}_ms"] = _median(ms_all)
+            del params, opt, fn
+    finally:
+        torch.use_deterministic_algorithms(False)
+    host_ms = max(out["dp_ms"], out["tp_ms"]) - out["unsharded_ms"]
+    print(f"[8a] DTensor's host cost: {out['dp_ms'] - out['unsharded_ms']:.1f} ms (pure DP) and "
+          f"{out['tp_ms'] - out['unsharded_ms']:.1f} ms (TP) a step over the unsharded "
+          f"{out['unsharded_ms']:.1f} ms; {smi}")
+    out["host_cost_ms"] = host_ms
+    del trainer, p0, o0, ref, want
+    return out
+
+
+def shard_serve_checks(torch, mesh, smi: str) -> dict:
+    """(b) qwen2-0.5b's ``shard_prefill_step`` at prefill_32k (batch cut
+    to 1) on the (1, 1) mesh: the logits bit for bit against the unsharded
+    prefill, the flash kernel launched once a layer through ``local_map``.
+    (c) ``shard_decode_step`` at decode_32k (batch cut to 8), 8 steps from
+    an empty cache: logits and state bit for bit against
+    ``lm.decode_step``; the tied head takes ``matmul_f32``'s card route on
+    DTensors."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models import build_model, lm
+    from repro_torch.optim.tree import tree_leaves
+    from repro_torch.runtime.serve_loop import shard_decode_step, shard_prefill_step
+    from repro_torch.runtime.sharding import choose_policy, place_tree
+
+    cfg = _lm_config()
+    params = build_model(cfg).init(torch.Generator().manual_seed(0), "cuda")
+    s = _prefill_len()
+    tokens = torch.randint(0, cfg.vocab, (1, s), generator=torch.Generator().manual_seed(5)).cuda()
+    shape = SHAPES["prefill_32k"]
+    policy = choose_policy(cfg, shape, mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = build_model(cfg).prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    fn, _ = shard_prefill_step(cfg, shape, policy)
+    placed = fn.place(params, {"tokens": tokens})
+    fn(*placed)  # once, so the wall below is not DTensor's first-call caching
+    torch.cuda.synchronize()
+    build.reset_counters()
+    t0 = time.perf_counter()
+    got = fn(*placed)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, fp32 = fa.LAUNCHES["tensor_core"].value, fa.LAUNCHES["cuda_core"].value
+    same = torch.equal(_local(got), want)
+    print(f"[8b] {cfg.arch_id} shard_prefill_step, prefill_32k with the global batch cut from "
+          f"{shape.global_batch} to 1, {policy.model_axis and 'TP' or 'pure-DP'} policy on the "
+          f"(1, 1) mesh: {wall:.3f} s wall (the unsharded prefill: {plain_wall:.3f} s); "
+          f"logits equal the unsharded prefill's bit for bit: {same}; flash "
+          f"launches: tensor-core route {launches} (want {cfg.n_layers}), fp32 route {fp32}; "
+          f"{smi}")
+    if not same or launches != cfg.n_layers or fp32:
+        fail(f"8b: sharded prefill equal={same}, launches {launches}/{fp32}")
+    del placed, got, want
+    out = {"prefill_s": wall, "prefill_unsharded_s": plain_wall}
+
+    dshape = replace(SHAPES["decode_32k"], global_batch=SHARD_DECODE_BATCH)
+    dpolicy = choose_policy(cfg, dshape, mesh)
+    dfn, _ = shard_decode_step(cfg, dshape, dpolicy)
+    dparams = place_tree(params, dfn.in_shardings[0])
+    ref = lm.init_decode_state(cfg, SHARD_DECODE_BATCH, dshape.seq_len, "cuda")
+    state = lm.init_decode_state(cfg, SHARD_DECODE_BATCH, dshape.seq_len, "cuda")
+    gen = torch.Generator().manual_seed(9)
+    unequal, ms_all, ref_ms = 0, [], []
+    for _ in range(SHARD_DECODE_STEPS):
+        nt = torch.randint(0, cfg.vocab, (SHARD_DECODE_BATCH, 1), generator=gen).cuda()
+        (want, ref), ms_ref = _timed_call(torch, lambda: lm.decode_step(params, cfg, ref, nt))
+        (got, state), ms = _timed_call(torch, lambda: dfn(dparams, state, {"tokens": nt}))
+        unequal += int(not torch.equal(_local(got), want))
+        ms_all.append(ms)
+        ref_ms.append(ms_ref)
+    bad = sum(int(not torch.equal(_local(a), b))
+              for a, b in zip(tree_leaves(state), tree_leaves(ref)))
+    print(f"[8c] {cfg.arch_id} shard_decode_step, decode_32k with the global batch cut from "
+          f"128 to {SHARD_DECODE_BATCH}, {SHARD_DECODE_STEPS} steps from an empty cache: "
+          f"logits unequal in {unequal} steps, state leaves unequal {bad} of "
+          f"{len(tree_leaves(ref))}; step {_median(ms_all):.2f} ms against the unsharded "
+          f"eager step's {_median(ref_ms):.2f} ms (CUDA events, medians); {smi}")
+    if unequal or bad:
+        fail(f"8c: the sharded decode differs: {unequal} logits, {bad} state leaves")
+    out.update(decode_ms=_median(ms_all), decode_unsharded_ms=_median(ref_ms))
+    del params, dparams, ref, state
+    return out
+
+
+def dryrun_report(torch, results: dict, phase7: dict, smi: str) -> None:
+    """(d) the two qwen2-0.5b cells on the 16 x 16 mesh of fake ranks; (e)
+    the estimates of smollm-360m's step against the card's phase 7a."""
+    for label in (f"{a} {s}" for a, s in DRYRUN_CELLS):
+        r = results[label]
+        if r.get("status") != "ok":
+            fail(f"8d: dry-run {label}: {r.get('status')} {r.get('error', '')}")
+        rf, c, m = r["roofline"], r["collectives"], r["memory"]
+        print(f"[8d] dry-run {label} on {r['n_chips']} fake ranks, policy {r['policy']}: "
+              f"trace {r['trace_s']} s; per device {r['cost']['flops_per_device']:.4e} flops, "
+              f"{r['cost']['bytes_per_device']:.4e} bytes, peak {m['peak_bytes'] / 2**30:.3f} GiB "
+              f"(fits {m['fits']}); roofline compute {rf['compute_s']:.4e} s, memory "
+              f"{rf['memory_s']:.4e} s (kernel {rf['memory_s_kernel']:.4e} s), collective "
+              f"{rf['collective_s']:.4e} s, dominant {rf['dominant']}; collectives "
+              f"{ {k: v for k, v in c.items() if v} }; layout events {r['layout_events']}")
+    dec = results[f"{DRYRUN_CELLS[1][0]} {DRYRUN_CELLS[1][1]}"]
+    # Trap of the head views: 14 heads of 64 on a 16-way model axis.  The
+    # projections' 896 features split 16 ways are not whole heads, so each
+    # view is replicated explicitly first (layers x q, k, v).
+    if dec["policy"]["model_axis"] != "model" or dec["layout_events"].get("whole_heads", 0) < 3:
+        fail(f"8d: decode_32k did not take the TP layout with whole-head views: {dec['policy']} "
+             f"{dec['layout_events']}")
+    est = results["estimate"]
+    if est.get("status") != "ok":
+        fail(f"8e: the estimate failed: {est}")
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import abstract_params
+
+    n = sum(t.numel() for t in _leaves(abstract_params(ARCHS[TRAIN_ARCH])))
+    tokens = TRAIN_SEQ_LEN * TRAIN_BATCH
+    flop_ratio = est["cost"]["flops_per_device"] / (8 * n * tokens)
+    peak = est["memory"]["peak_bytes"] / 2**30
+    mem_ratio = peak / phase7["peak_gib"]
+    print(f"[8e] {TRAIN_ARCH} seq {TRAIN_SEQ_LEN} x batch {TRAIN_BATCH} on one fake rank: "
+          f"estimated peak {peak:.3f} GiB against phase 7a's {phase7['peak_gib']:.3f} GiB above the "
+          f"start ({mem_ratio:.3f}x, bound {MEM_ESTIMATE_BOUNDS}); counted flops "
+          f"{est['cost']['flops_per_device']:.4e} = {flop_ratio:.3f} x 8 N T (N {n:,}, T {tokens}; "
+          f"bound {FLOP_ESTIMATE_BOUNDS}; attention {est['cost']['attention_flops']:.4e}); "
+          f"trace {est['trace_s']} s; {smi}")
+    if not MEM_ESTIMATE_BOUNDS[0] <= mem_ratio <= MEM_ESTIMATE_BOUNDS[1]:
+        fail(f"8e: the memory estimate is {mem_ratio:.3f}x the card's, outside {MEM_ESTIMATE_BOUNDS}")
+    if not FLOP_ESTIMATE_BOUNDS[0] <= flop_ratio <= FLOP_ESTIMATE_BOUNDS[1]:
+        fail(f"8e: the flop count is {flop_ratio:.3f}x 8 N T, outside {FLOP_ESTIMATE_BOUNDS}")
+
+
+def shard_refusals(torch, mesh) -> None:
+    """(f) A DTensor and a FakeTensor handed straight to each kernel
+    wrapper raise the kernels' refusal of tensor subclasses."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.matern import ops as mo
+    from repro_torch.kernels.swe_flux import ops as so
+    from repro_torch.swe.solver import SWEConfig, SWEState
+
+    cfg = SWEConfig(nx=32, ny=32, dx=1000.0, dy=1000.0, t_end=1.0)
+
+    def calls(t):
+        q = t((1, 2, 64, 64), torch.bfloat16)
+        h = t((2, 32, 32), torch.float32)
+        b = t((32, 32), torch.float32)
+        a = t((8, 4), torch.float32)
+        return {
+            "flash_attention": lambda: fa.flash_attention(q, q, q),
+            "swe_fused_step": lambda: so.swe_step_batched(SWEState(h, h, h), b, 0.1, cfg=cfg),
+            "swe_sweep": lambda: so.swe_sweep(h, h, h, b, axis=0, g=9.81, d=1000.0),
+            "matern52": lambda: mo.matern52_scaled(a, a, 1.0),
+            "matern52_mean": lambda: mo.matern52_mean(
+                a, t((4,), torch.float32), a, t((8, 3), torch.float32), t((3,), torch.float32),
+                t((3,), torch.float32), 1.0),
+        }
+
+    def dtensor(shape, dtype):
+        return distribute_tensor(torch.zeros(shape, dtype=dtype, device="cuda"), mesh,
+                                 [Replicate(), Replicate()])
+
+    def run(kind, table):
+        for name, call in table.items():
+            try:
+                call()
+            except RuntimeError as e:
+                if "takes plain tensors" not in str(e):
+                    raise
+                print(f"[8f] {name} given a {kind}: refused ({str(e)[:90]}...)")
+                continue
+            fail(f"8f: {name} ran on a {kind}")
+
+    run("DTensor", calls(dtensor))
+    with FakeTensorMode():
+        run("FakeTensor", calls(lambda shape, dtype: torch.zeros(shape, dtype=dtype,
+                                                                 device="cuda")))
+
+
+def phase_sharded_steps(torch, smi: str, phase7: dict, ended=lambda phase: None) -> None:
+    """8: the dry-runs start on the host; the NCCL group of one rank (a
+    local store) is set up and torn down at the phase's edges around
+    (a)-(c) and (f); then the dry-runs' results, (d) and (e)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    procs = _start_dryruns()
+    try:
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
+                                world_size=1)
+        try:
+            mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+            shard_train_checks(torch, mesh, smi, phase7["step_ms"])
+            ended("8a sharded train")
+            shard_serve_checks(torch, mesh, smi)
+            ended("8b-c sharded prefill and decode")
+            shard_refusals(torch, mesh)
+        finally:
+            dist.destroy_process_group()
+        results = _wait_dryruns(procs)
+    finally:
+        for _, proc, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+    dryrun_report(torch, results, phase7, smi)
+    ended("8d-f dry-run, estimates, refusals")
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run from a checkout")
@@ -3876,8 +4248,9 @@ def main() -> None:
     phase_lm(torch, rows, ended)
     phase_families(torch, rows, ended)
     phase_last_families(torch, rows, ended)
-    phase_training(torch, smi, ended)
-    print(f"[8] all phases passed in {time.perf_counter() - t_start:.1f}s; seconds by phase "
+    phase7 = phase_training(torch, smi, ended)
+    phase_sharded_steps(torch, smi, phase7, ended)
+    print(f"[9] all phases passed in {time.perf_counter() - t_start:.1f}s; seconds by phase "
           f"{phase_walls}")
     keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")

@@ -4,7 +4,15 @@ from __future__ import annotations
 
 from typing import Dict
 
-from .base import SHAPES, ArchConfig, MoEConfig, ShapeConfig, SSMConfig, arch_from_reference
+from .base import (
+    SHAPES,
+    ArchConfig,
+    MoEConfig,
+    ShapeConfig,
+    SSMConfig,
+    arch_from_reference,
+    shape_applicable,
+)
 from .granite_moe_3b_a800m import CONFIG as granite_moe_3b_a800m
 from .llava_next_mistral_7b import CONFIG as llava_next_mistral_7b
 from .mamba2_1_3b import CONFIG as mamba2_1_3b
@@ -45,4 +53,5 @@ __all__ = [
     "ShapeConfig",
     "arch_from_reference",
     "get_arch",
+    "shape_applicable",
 ]

@@ -4,13 +4,13 @@ The port serves every family of the reference: the decoder-only dense,
 MoE, SSM (Mamba2), hybrid (Mamba2 with one shared attention block) and VLM
 (patch embeddings projected in front of the tokens) families, and the
 encoder-decoder (whisper) family, with the SwiGLU, squared-ReLU or GELU
-MLP.  What is still refused raises :class:`NotImplementedError` naming
-its ROADMAP item: the sharded entry points (item 10).
+MLP.  :func:`shape_applicable` is the reference's skip rule for the
+(arch x shape) cells of the dry-run.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, fields, replace
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 # Attention implementations (``ArchConfig.attn_impl``): the hand-written
 # CUDA flash kernel, the plain blocked online-softmax loop, and the plain
@@ -18,8 +18,6 @@ from typing import Dict, Optional
 ATTN_IMPLS = ("kernel", "chunked", "xla")
 # The reference's names for the same three ("pallas" is its TPU kernel).
 _REFERENCE_ATTN_IMPL = {"pallas": "kernel", "chunked": "chunked", "xla": "xla"}
-# What a refusal names: the sharded per-cell entry points.
-NOT_SHARDED = "not ported yet (ROADMAP Queue 1 item 10)"
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "encdec")
 MLPS = ("swiglu", "sqrelu", "gelu")
 
@@ -99,6 +97,12 @@ class ArchConfig:
         0) has none and never asks."""
         return self.head_dim or (self.d_model // self.n_heads)
 
+    @property
+    def subquadratic(self) -> bool:
+        """Can this arch decode at 500k context?  (The SSM and hybrid
+        families, and sliding-window attention.)"""
+        return self.family in ("ssm", "hybrid") or self.sliding_window is not None
+
     def reduced(self) -> "ArchConfig":
         """Tiny same-family config for CPU tests (the reference's rule)."""
         kv_ratio = max(1, self.n_heads // max(self.n_kv_heads, 1))
@@ -162,3 +166,9 @@ SHAPES: Dict[str, ShapeConfig] = {
     "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
 }
 
+
+def shape_applicable(arch: ArchConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """The reference's skip rule -> (runs, reason-if-skipped)."""
+    if shape.name == "long_500k" and not arch.subquadratic:
+        return False, "long_500k needs sub-quadratic attention (pure full-attn arch)"
+    return True, ""

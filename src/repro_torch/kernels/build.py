@@ -202,8 +202,18 @@ def require_plain(tensors, kernel: str) -> None:
     The kernels have no backward and no batching rule (nor had the Pallas
     kernels they replace a VJP), so a launch under autograd or a
     ``torch.func`` transform (``grad``, ``jacfwd``, ``vmap``) is refused
-    here with the reason, never run through the plain version instead."""
+    here with the reason, never run through the plain version instead.  A
+    tensor subclass (a DTensor, a FakeTensor) is refused too: a kernel
+    reads the memory of the tensor it is given, which such a tensor does
+    not own or does not have; a sharded caller hands the kernel its local
+    shards (``local_map``)."""
     for t in tensors:
+        if type(t) not in (torch.Tensor, torch.nn.Parameter):
+            raise RuntimeError(
+                f"{kernel}: the CUDA kernel takes plain tensors, got a "
+                f"{type(t).__name__}; call it on local tensors (a DTensor's "
+                "shards through local_map), never on a DTensor or a FakeTensor"
+            )
         if t.requires_grad or torch._C._functorch.is_functorch_wrapped_tensor(t):
             raise RuntimeError(
                 f"{kernel}: the CUDA kernel has no backward and no batching rule; "

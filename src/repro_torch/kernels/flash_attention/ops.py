@@ -8,7 +8,11 @@ raises) or the plain version for CPU tensors.  Which CUDA kernel serves a
 call is decided by :func:`route` from the dtype alone: bf16 goes to the
 tensor-core kernel (wgmma + TMA), fp32 to the CUDA-core kernel (TF32 tensor
 cores cannot meet the fp32 bound of 3e-5).  Neither falls back to the
-other.  The kernels have no backward: training is not ported.
+other.  The kernels have no backward (training takes ``"chunked"``).
+
+DTensor inputs (a sharded prefill) reach the kernel through ``local_map``
+(:func:`_attention_sharded`): each rank runs it on its local shards, laid
+out where the kernel can take them, and never on a DTensor itself.
 """
 from __future__ import annotations
 
@@ -107,6 +111,11 @@ def attention(
     """Multi-head GQA attention: q (B,H,S,D), k/v (B,Hkv,Skv,D) -> (B,H,S,D)."""
     if impl not in IMPLS:
         raise ValueError(f"impl '{impl}' not in {IMPLS}")
+    if impl == "kernel" and q.shape[2] == k.shape[2] and type(q) is not torch.Tensor:
+        from torch.distributed.tensor import DTensor
+
+        if isinstance(q, DTensor):
+            return _attention_sharded(q, k, v, causal=causal, window=window, scale=scale)
     if impl == "xla":
         return attention_ref(q, k, v, causal=causal, window=window, scale=scale)
     if impl == "chunked" or q.shape[2] != k.shape[2]:
@@ -116,3 +125,42 @@ def attention(
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window, scale=scale)
     return flash_attention(q, k, v, causal=causal, window=window, scale=scale)
+
+
+def kernel_placements(q, k):
+    """Placements on which every rank can run the kernel on its own shards:
+    per mesh dim, the batch split as it is; the heads split only where the
+    dim's size divides both H and Hkv (whole GQA groups on each rank); the
+    sequence and head dim whole (the kernel takes no query offset, so a
+    sequence shard would be masked as if it started at position 0)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    h, hkv = q.shape[1], k.shape[1]
+    out = []
+    for size, pq, pk in zip(q.device_mesh.shape, q.placements, k.placements):
+        if pq.is_shard(0) and pk.is_shard(0):
+            out.append(Shard(0))
+        elif pq.is_shard(1) and h % size == 0 and hkv % size == 0:
+            out.append(Shard(1))
+        else:
+            out.append(Replicate())
+    return out
+
+
+def _attention_sharded(q, k, v, *, causal, window, scale):
+    """The kernel (the plain version on CPU shards) on each rank's local
+    shards, through ``local_map``, with q, k and v first laid out by
+    :func:`kernel_placements` (the collectives XLA inserts around a custom
+    call it cannot partition)."""
+    from torch.distributed.tensor.experimental import local_map
+
+    pl = kernel_placements(q, k)
+    mesh = q.device_mesh
+    q, k, v = (t.redistribute(mesh, pl) for t in (q, k, v))
+
+    def local(ql, kl, vl):
+        return attention(ql.contiguous(), kl.contiguous(), vl.contiguous(), causal=causal,
+                         window=window, scale=scale, impl="kernel")
+
+    return local_map(local, out_placements=pl, in_placements=(pl, pl, pl),
+                     redistribute_inputs=False, device_mesh=mesh)(q, k, v)

@@ -6,10 +6,17 @@ pipeline, AdamW with its schedule and clipping, microbatches, and
 checkpoint/restart (``--checkpoint``, ``--resume``; saves in the
 background every ``--checkpoint-every`` steps).  The flags and the
 ``[train] step ...`` log line are the reference's; ``--device`` is the
-port's (the card by default, ``cpu`` on request).  There is no mesh: the
-sharded step is not ported yet (ROADMAP Queue 1 item 10).
+port's (the card by default, ``cpu`` on request).
+
+One process runs the unsharded step.  Launched with a world size above 1
+(``torchrun``), every process joins the process group (NCCL on cards, gloo
+on the CPU), builds the host mesh ``(world_size, 1)``, and trains through
+``shard_train_step`` under the pure-DP policy, as the reference's launcher
+does; rank 0 prints and writes the checkpoints.
 
     PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu --steps 20
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --reduced --device cpu --steps 20 --batch 8
 
 In code, :func:`make_trainer` builds the model, optimizer and data of a
 run and :class:`Trainer` takes its steps; :func:`run` is the loop the CLI
@@ -31,7 +38,8 @@ from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.data.pipeline import microbatch, synthetic_lm_batch
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.optim.adamw import AdamWConfig
-from repro_torch.runtime.train_loop import TrainRuntime, make_train_fns
+from repro_torch.optim.tree import tree_leaves, tree_unflatten
+from repro_torch.runtime.train_loop import TrainRuntime, make_train_fns, shard_train_step
 
 
 @dataclass
@@ -46,6 +54,9 @@ class Trainer:
     opt_state: Any
     device: torch.device
     seed: int = 0
+    rank: int = 0
+    # The sharded step (a world size above 1): places plain trees.
+    sharded: Any = None
 
     def batch(self, step: int) -> Dict[str, torch.Tensor]:
         """Step ``step``'s batch (a pure function of (seed, step)), in the
@@ -61,12 +72,20 @@ class Trainer:
 
     @property
     def state(self):
-        return (self.params, self.opt_state)
+        """``(params, opt_state)``, whole (a sharded run gathers its shards
+        on every rank: call it on all of them)."""
+        if self.sharded is None:
+            return (self.params, self.opt_state)
+        leaves = tree_leaves((self.params, self.opt_state))
+        return tree_unflatten((self.params, self.opt_state), [t.full_tensor() for t in leaves])
 
     def restore(self, path: str) -> int:
         """Load ``(params, opt_state)`` from ``path`` -> the step it was
         saved at."""
-        (self.params, self.opt_state), step, _ = restore(path, self.state, device=self.device)
+        (params, opt_state), step, _ = restore(path, self.state, device=self.device)
+        if self.sharded is not None:
+            params, opt_state = self.sharded.place(params, opt_state)
+        self.params, self.opt_state = params, opt_state
         return step
 
 
@@ -87,6 +106,26 @@ def make_trainer(cfg: ArchConfig, *, steps: int, seq_len: int = 256, batch: int 
     return Trainer(cfg, shape, rt, train_step, params, opt_state, dev, seed)
 
 
+def make_sharded_trainer(cfg: ArchConfig, *, steps: int, seq_len: int = 256, batch: int = 8,
+                         microbatches: int = 1, lr: float = 3e-4, device: DeviceLike = "cuda",
+                         seed: int = 0) -> Trainer:
+    """:func:`make_trainer` on every rank of the running process group:
+    the host mesh, the pure-DP policy and ``shard_train_step``, the same
+    weights on every rank, placed by the step's shardings."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.runtime.sharding import make_policy
+
+    plain = make_trainer(cfg, steps=steps, seq_len=seq_len, batch=batch,
+                         microbatches=microbatches, lr=lr, device=device, seed=seed)
+    policy = make_policy(make_host_mesh(plain.device.type), pure_dp=True)
+    fn, _ = shard_train_step(cfg, plain.shape, policy, plain.rt)
+    params, opt_state = fn.place(plain.params, plain.opt_state)
+    return Trainer(cfg, plain.shape, plain.rt, fn, params, opt_state, plain.device, seed,
+                   rank=dist.get_rank(), sharded=fn)
+
+
 def run(trainer: Trainer, start_step: int, steps: int, *, checkpoint: str = "",
         checkpoint_every: int = 50, log_every: int = 10) -> Optional[Dict[str, float]]:
     """Steps ``start_step .. steps - 1``, logging as the reference's
@@ -98,7 +137,7 @@ def run(trainer: Trainer, start_step: int, steps: int, *, checkpoint: str = "",
     metrics = None
     for step in range(start_step, steps):
         metrics = trainer.step(step)
-        if (step + 1) % log_every == 0 or step == start_step:
+        if trainer.rank == 0 and ((step + 1) % log_every == 0 or step == start_step):
             dt = time.time() - t0
             tps = tokens_per_step * (step + 1 - start_step) / max(dt, 1e-9)
             print(
@@ -108,11 +147,15 @@ def run(trainer: Trainer, start_step: int, steps: int, *, checkpoint: str = "",
                 flush=True,
             )
         if checkpoint and (step + 1) % checkpoint_every == 0:
-            ckpt.save(checkpoint, trainer.state, step=step + 1)
+            state = trainer.state
+            if trainer.rank == 0:
+                ckpt.save(checkpoint, state, step=step + 1)
     ckpt.wait()
     if checkpoint:
-        save(checkpoint, trainer.state, step=steps)
-        print(f"[train] final checkpoint at {checkpoint}")
+        state = trainer.state
+        if trainer.rank == 0:
+            save(checkpoint, state, step=steps)
+            print(f"[train] final checkpoint at {checkpoint}")
     return None if metrics is None else {k: float(v) for k, v in metrics.items()}
 
 
@@ -138,14 +181,34 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[Dict[str, float]]:
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    trainer = make_trainer(cfg, steps=args.steps, seq_len=args.seq_len, batch=args.batch,
-                           microbatches=args.microbatches, lr=args.lr, device=args.device)
-    start_step = 0
-    if args.resume and args.checkpoint and os.path.exists(args.checkpoint):
-        start_step = trainer.restore(args.checkpoint)
-        print(f"[train] resumed from step {start_step}")
-    return run(trainer, start_step, args.steps, checkpoint=args.checkpoint,
-               checkpoint_every=args.checkpoint_every, log_every=args.log_every)
+    kw = dict(steps=args.steps, seq_len=args.seq_len, batch=args.batch,
+              microbatches=args.microbatches, lr=args.lr)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world == 1:
+        trainer = make_trainer(cfg, device=args.device, **kw)
+    else:
+        import torch.distributed as dist
+
+        device = resolve_device(args.device)
+        if device.type == "cuda":
+            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+            torch.cuda.set_device(device)
+        # torchrun's environment gives the address, world size and rank.
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+        trainer = make_sharded_trainer(cfg, device=device, **kw)
+    try:
+        start_step = 0
+        if args.resume and args.checkpoint and os.path.exists(args.checkpoint):
+            start_step = trainer.restore(args.checkpoint)
+            if trainer.rank == 0:
+                print(f"[train] resumed from step {start_step}")
+        return run(trainer, start_step, args.steps, checkpoint=args.checkpoint,
+                   checkpoint_every=args.checkpoint_every, log_every=args.log_every)
+    finally:
+        if world > 1:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

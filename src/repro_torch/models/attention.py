@@ -1,7 +1,7 @@
 """GQA attention with RoPE and optional QKV bias: prefill and decode.
 
-The reference's ``models/attention.py`` for one card: the sharding
-constraints are gone, and the decode cache carries a position per batch row
+The reference's ``models/attention.py``, with its sharding hooks (no-ops
+without a policy); the decode cache carries a position per batch row
 (``pos`` (B,), ``pos_buf`` (B, W)), so rows admitted at different token
 boundaries decode together in one batched step where the reference
 ``vmap``s a B = 1 step over the slots.  The decode cache is updated in
@@ -17,12 +17,20 @@ encoder-decoder's decoder attends over the encoder's output through
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention.ops import attention as attn_op
+from repro_torch.runtime.sharding import (
+    local_heads,
+    maybe_constrain,
+    maybe_constrain_heads,
+    maybe_whole_heads,
+    write_cache_slot,
+)
 
 from .layers import Params, apply_rope, dense_init, matmul_f32
 
@@ -53,10 +61,12 @@ def _project_qkv(params: Params, x: torch.Tensor, cfg: ArchConfig):
         q = q + params["bq"]
         k = k + params["bk"]
         v = v + params["bv"]
-    q = q.reshape(b, s, cfg.n_heads, hd).transpose(1, 2)
-    k = k.reshape(b, s, cfg.n_kv_heads, hd).transpose(1, 2)
-    v = v.reshape(b, s, cfg.n_kv_heads, hd).transpose(1, 2)
-    return q, k, v
+    q = maybe_whole_heads(q, cfg.n_heads).reshape(b, s, cfg.n_heads, hd).transpose(1, 2)
+    k = maybe_whole_heads(k, cfg.n_kv_heads).reshape(b, s, cfg.n_kv_heads, hd).transpose(1, 2)
+    v = maybe_whole_heads(v, cfg.n_kv_heads).reshape(b, s, cfg.n_kv_heads, hd).transpose(1, 2)
+    # Pin batch->dp / heads->model (no-ops without a policy).
+    return (maybe_constrain_heads(q, "q"), maybe_constrain_heads(k, "kv"),
+            maybe_constrain_heads(v, "kv"))
 
 
 def attention_train(
@@ -78,7 +88,10 @@ def attention_train(
         q.contiguous(), k.contiguous(), v.contiguous(),
         causal=causal, window=cfg.sliding_window, impl=cfg.attn_impl,
     )  # (B, H, S, hd)
-    o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.hd)
+    # Back to the residual stream's layout before the output projection
+    # (a no-op without a policy): the query rows that context parallelism
+    # split are gathered here.
+    o = maybe_constrain(o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.hd))
     return o @ params["wo"]
 
 
@@ -190,17 +203,21 @@ def _attend(params: Params, q: torch.Tensor, view_k: torch.Tensor, view_v: torch
     in fp32 with an fp32 result and no fp32 copy of the keys
     (:func:`~repro_torch.models.layers.matmul_f32`, the reference's
     ``preferred_element_type=float32``); masked scores are -1e30."""
-    b, _, c, hd = q.shape
-    hkv, w = cfg.n_kv_heads, view_k.shape[2]
-    group = cfg.n_heads // hkv
+    return local_heads(partial(_read, cfg=cfg), q, view_k, view_v, valid) @ params["wo"]
+
+
+def _read(q, view_k, view_v, valid, *, cfg: ArchConfig) -> torch.Tensor:
+    """:func:`_attend` before the output projection -> (B, C, H * hd)."""
+    b, h, c, hd = q.shape
+    hkv, w = view_k.shape[1], view_k.shape[2]
+    group = h // hkv
     qg = q.reshape(b * hkv, group * c, hd)
     kt = view_k.reshape(b * hkv, w, hd).transpose(1, 2)
     scores = matmul_f32(qg, kt).reshape(b, hkv, group, c, w) * (hd**-0.5)
     scores = torch.where(valid[:, None, None], scores, -1e30)
     p = torch.softmax(scores, dim=-1)
     o = torch.einsum("bkgqs,bksd->bkgqd", p.to(view_v.dtype), view_v)
-    o = o.permute(0, 3, 1, 2, 4).reshape(b, c, cfg.n_heads * hd)
-    return o @ params["wo"]
+    return o.permute(0, 3, 1, 2, 4).reshape(b, c, h * hd)
 
 
 def _valid(j: torch.Tensor, pos: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
@@ -262,9 +279,9 @@ def attention_decode(
 
     rows = torch.arange(b, device=x.device)
     slot = torch.remainder(pos, w)
-    layer_k[rows, :, slot] = k_new[:, :, 0]
-    layer_v[rows, :, slot] = v_new[:, :, 0]
-    pos_buf[rows, slot] = pos
+    write_cache_slot(layer_k, slot, k_new[:, :, 0], rows)
+    write_cache_slot(layer_v, slot, v_new[:, :, 0], rows)
+    write_cache_slot(pos_buf, slot, pos, rows)
 
     valid = (pos_buf >= 0) & _valid(pos_buf, pos[:, None], cfg)  # (B, W)
     out = _attend(params, q, layer_k, layer_v, valid[:, None, :], cfg)

@@ -15,19 +15,22 @@ block; here it is simply shorter, which computes the same sums.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.runtime.sharding import local_attention, maybe_constrain_heads
+
 NEG_INF = -1e30
 
 
 def _kv_block(qf, kblk, vblk, m, l, acc, k_start: int, s_kv: int, causal: bool,
-              window: Optional[int], scale: float):
+              window: Optional[int], scale: float, q_start: int = 0):
     """One key block into the running (max, sum, acc) -> the new three."""
     s = qf.shape[2]
-    rows = torch.arange(s, device=qf.device)[:, None]  # absolute q index
+    rows = torch.arange(q_start, q_start + s, device=qf.device)[:, None]  # absolute q index
     sc = (qf @ kblk.float().transpose(-1, -2)) * scale  # (B, H, S, bk)
     cols = k_start + torch.arange(kblk.shape[2], device=qf.device)[None, :]
     mask = cols < s_kv
@@ -62,6 +65,18 @@ def attention_chunked(
     if group > 1:
         k = k.repeat_interleave(group, dim=1)
         v = v.repeat_interleave(group, dim=1)
+    k = maybe_constrain_heads(k, "kv")
+    v = maybe_constrain_heads(v, "kv")
+    q = maybe_constrain_heads(q, "q")
+    return local_attention(partial(_blocked, causal=causal, window=window, scale=scale,
+                                   block_k=block_k), q, k, v)
+
+
+def _blocked(q, k, v, *, causal, window, scale, block_k, q_start: int = 0):
+    """The online-softmax loop over key blocks; ``q_start`` is the absolute
+    position of q's first row (a shard of the query rows)."""
+    b, h, s, d = q.shape
+    s_kv = k.shape[2]
     qf = q.float()
     m = torch.full((b, h, s), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((b, h, s), dtype=torch.float32, device=q.device)
@@ -70,7 +85,7 @@ def attention_chunked(
     bk = min(block_k, s_kv)
     for k_start in range(0, s_kv, bk):
         args = (qf, k[:, :, k_start : k_start + bk], v[:, :, k_start : k_start + bk], m, l, acc,
-                k_start, s_kv, causal, window, scale)
+                k_start, s_kv, causal, window, scale, q_start)
         if remat:
             m, l, acc = checkpoint(_kv_block, *args, use_reentrant=False)
         else:

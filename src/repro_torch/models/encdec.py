@@ -24,6 +24,12 @@ from typing import NamedTuple, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.runtime.sharding import (
+    gather_params,
+    lookup,
+    maybe_constrain,
+    maybe_constrain_logits,
+)
 
 from .attention import (
     KVCache,
@@ -106,19 +112,21 @@ def encode(params: Params, cfg: ArchConfig, frames: torch.Tensor) -> torch.Tenso
     non-causal self-attention blocks."""
     dt = dtype_of(cfg.compute_dtype)
     pe = sinusoidal_positions(frames.shape[1], cfg.d_model, device=frames.device)
-    x = frames.to(dt) + pe.to(dt)
+    x = maybe_constrain(frames.to(dt) + pe.to(dt))
     for p in params["enc_blocks"]:
-        x = remat_call(cfg, _enc_block, p, x, cfg)
-    return rmsnorm(x, params["ln_enc"], cfg.norm_eps)
+        x = maybe_constrain(remat_call(cfg, _enc_block, p, x, cfg))
+    return rmsnorm(x, gather_params({"ln": params["ln_enc"]})["ln"], cfg.norm_eps)
 
 
 def _enc_block(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    p = gather_params(p)
     x = x + attention_train(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cfg, causal=False)
     return x + mlp(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps), cfg.mlp)
 
 
 def _dec_block(p: Params, x: torch.Tensor, enc_out: torch.Tensor,
                cfg: ArchConfig) -> torch.Tensor:
+    p = gather_params(p)
     x = x + attention_train(p["self_attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cfg,
                             causal=True)
     kv = encode_cross_kv(p["cross_attn"], enc_out, cfg)
@@ -132,15 +140,18 @@ def _decoder(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
     stream (B, S, d), before the final norm."""
     dt = dtype_of(cfg.compute_dtype)
     pe = sinusoidal_positions(tokens.shape[1], cfg.d_model, device=tokens.device)
-    x = params["embed"][tokens].to(dt) + pe.to(dt)
+    embed = gather_params({"embed": params["embed"]})["embed"]
+    x = maybe_constrain(lookup(embed, tokens).to(dt) + pe.to(dt))
     for p in params["dec_blocks"]:
-        x = remat_call(cfg, _dec_block, p, x, enc_out, cfg)
+        x = maybe_constrain(remat_call(cfg, _dec_block, p, x, enc_out, cfg))
     return x
 
 
 def _head(params: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     """Final norm and the tied unembedding -> fp32 logits."""
-    return unembed(rmsnorm(x, params["ln_f"], cfg.norm_eps), params["embed"])
+    params = gather_params({k: params[k] for k in ("ln_f", "embed")})
+    return maybe_constrain_logits(unembed(rmsnorm(x, params["ln_f"], cfg.norm_eps),
+                                          params["embed"]))
 
 
 def decode_train(params: Params, cfg: ArchConfig, tokens: torch.Tensor,
@@ -199,7 +210,7 @@ def decode_step(params: Params, cfg: ArchConfig, state: EncDecState,
     dt = dtype_of(cfg.compute_dtype)
     pos = state.pos
     pe = _sinusoid(pos.to(torch.float32), cfg.d_model)[:, None]  # (B, 1, d)
-    x = params["embed"][tokens].to(dt) + pe.to(dt)
+    x = lookup(params["embed"], tokens).to(dt) + pe.to(dt)
     kv = state.kv
     pos_buf = kv.pos_buf
     for layer, p in enumerate(params["dec_blocks"]):

@@ -7,6 +7,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.runtime.sharding import maybe_constrain_ffn, maybe_reduce
+
 Params = Dict[str, Any]
 
 
@@ -165,13 +167,26 @@ def mlp(params: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
         h = gelu(x @ params["w_up"])
     else:
         raise ValueError(kind)
-    return h @ params["w_down"]
+    return maybe_constrain_ffn(h) @ params["w_down"]
 
 
 def unembed(x: torch.Tensor, w_embed: torch.Tensor) -> torch.Tensor:
     """Tied unembedding: (..., d) x (V, d) -> (..., V) in fp32, with no fp32
     copy of the embedding (:func:`matmul_f32`)."""
     return matmul_f32(x, w_embed.T)
+
+
+def _gold(shifted: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``shifted[..., labels]``: a gather; for a DTensor (a sharded step)
+    the reference's one-hot contraction instead, as a ``where`` and a sum
+    over the vocabulary (the gather's backward would scatter into a
+    replicated full-size zeros, and a vocab-sharded gather leaves partial
+    values).  Every term of the sum but one is +0, so the value is the
+    gathered one, bit for bit, and so is its gradient."""
+    if type(shifted) is torch.Tensor:
+        return torch.gather(shifted, -1, labels[..., None].long())[..., 0]
+    ids = torch.arange(shifted.shape[-1], device=labels.device)
+    return maybe_reduce(torch.where(labels[..., None] == ids, shifted, 0.0).sum(-1))
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -182,5 +197,5 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tens
     m = logits.amax(dim=-1, keepdim=True).detach()
     shifted = logits - m
     logz = torch.log(torch.exp(shifted).sum(dim=-1)) + m[..., 0]
-    gold = torch.gather(shifted, -1, labels[..., None].long())[..., 0] + m[..., 0]
+    gold = _gold(shifted, labels) + m[..., 0]
     return (logz - gold).mean()

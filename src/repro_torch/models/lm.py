@@ -1,9 +1,10 @@
 """Decoder-only LM of the dense, MoE, SSM, hybrid and VLM families:
 parameters, forward, prefill and decode.
 
-The reference's ``models/lm.py`` for one card: a Python loop over a list of
-per-layer parameter dicts where the reference scans a stacked tree, and no
-sharding constraints.  Under ``cfg.remat`` the training loss
+The reference's ``models/lm.py``: a Python loop over a list of per-layer
+parameter dicts where the reference scans a stacked tree, with the
+reference's sharding hooks (no-ops without a policy; under one, each
+block gathers its FSDP-split weights).  Under ``cfg.remat`` the training loss
 (:func:`lm_loss`) recomputes each block's activations in the backward
 pass, the hybrid's groups as a whole too, as the reference's
 ``jax.checkpoint``s.  The hybrid (zamba2) keeps its Mamba2
@@ -34,6 +35,12 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.runtime.sharding import (
+    gather_params,
+    lookup,
+    maybe_constrain,
+    maybe_constrain_logits,
+)
 
 from . import moe
 from .attention import (
@@ -146,6 +153,7 @@ def _ffn(p: Params, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 
 
 def _apply_attn_block(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    p = gather_params(p)
     x = x + attention_train(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cfg)
     return x + _ffn(p, rmsnorm(x, p["ln2"], cfg.norm_eps), cfg)
 
@@ -153,27 +161,30 @@ def _apply_attn_block(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tens
 def _head(params: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     """Final norm and (tied or separate) unembedding -> fp32 logits, with no
     fp32 copy of the (un)embedding (:func:`matmul_f32`)."""
+    params = gather_params({k: params[k] for k in ("ln_f", "embed", "unembed") if k in params})
     x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
     if cfg.tie_embeddings:
-        return unembed(x, params["embed"])
-    return matmul_f32(x, params["unembed"])
+        return maybe_constrain_logits(unembed(x, params["embed"]))
+    return maybe_constrain_logits(matmul_f32(x, params["unembed"]))
 
 
 def _embed_inputs(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]):
     """Tokens, and for the VLM the projected patch embeddings in front of
     them -> the (B, S, d) stream in the compute dtype."""
+    params = gather_params({k: params[k] for k in ("embed", "projector") if k in params})
     parts = []
     if cfg.family == "vlm" and "patches" in batch:
         pr = params["projector"]
         parts.append(gelu(batch["patches"].to(pr["w1"].dtype) @ pr["w1"]) @ pr["w2"])
     if "tokens" in batch:
-        parts.append(params["embed"][batch["tokens"]])
+        parts.append(lookup(params["embed"], batch["tokens"]))
     x = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
     return x.to(dtype_of(cfg.compute_dtype))
 
 
 def _block(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     if cfg.family in MAMBA_FAMILIES:
+        p = gather_params(p)
         return x + mamba_block(p["mamba"], rmsnorm(x, p["ln1"], cfg.norm_eps), cfg)
     return _apply_attn_block(p, x, cfg)
 
@@ -182,7 +193,7 @@ def _group(blocks, shared: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Te
     """The hybrid's group: ``shared_attn_every`` blocks, then the shared
     block."""
     for p in blocks:
-        x = remat_call(cfg, _block, p, x, cfg)
+        x = maybe_constrain(remat_call(cfg, _block, p, x, cfg))
     return _apply_attn_block(shared, x, cfg)
 
 
@@ -191,6 +202,7 @@ def _trunk(params: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     (B, S, d).  The hybrid runs its groups, then the tail blocks that
     complete no group (the shared block follows layers ``every - 1``,
     ``2 every - 1``, ...)."""
+    x = maybe_constrain(x)
     blocks = params["blocks"]
     every = cfg.shared_attn_every
     if every:
@@ -199,7 +211,7 @@ def _trunk(params: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
             x = remat_call(cfg, _group, blocks[g : g + every], params["shared"], x, cfg)
         blocks = blocks[n_grouped:]
     for p in blocks:
-        x = remat_call(cfg, _block, p, x, cfg)
+        x = maybe_constrain(remat_call(cfg, _block, p, x, cfg))
     return x
 
 
@@ -280,7 +292,7 @@ def _decode_trunk(params: Params, cfg: ArchConfig, state: DecodeState, tokens: t
     pos_buf).  Caches and recurrent state are written in place; where
     ``active`` (B,) is False a row's recurrent state keeps its old value
     (the recurrence has no scratch row to absorb a dummy feed)."""
-    x = params["embed"][tokens].to(dtype_of(cfg.compute_dtype))
+    x = lookup(params["embed"], tokens).to(dtype_of(cfg.compute_dtype))
     pos = state.pos
     kv = state.kv
     pos_buf = kv.pos_buf if kv is not None else None

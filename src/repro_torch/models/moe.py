@@ -21,6 +21,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig, MoEConfig
 
+from repro_torch.runtime.sharding import maybe_constrain_moe
+
 from .layers import Params, dense_init, normal_init
 
 
@@ -108,10 +110,11 @@ def moe_ffn_sparse(params: Params, x: torch.Tensor, moe: MoEConfig) -> torch.Ten
     e = moe.n_experts
     cap = _capacity(moe, s)
     xs, info, _ = _dispatch(params, x, moe, cap)
-    xe = xs.reshape(b, e, cap, d).transpose(0, 1).reshape(e, b * cap, d)
+    xs4 = maybe_constrain_moe(xs.reshape(b, e, cap, d))
+    xe = xs4.transpose(0, 1).reshape(e, b * cap, d)
     h = F.silu(torch.bmm(xe, params["w_gate"])) * torch.bmm(xe, params["w_up"])
     ye = torch.bmm(h, params["w_down"])  # (E, B * cap, d)
-    ys = ye.reshape(e, b, cap, d).transpose(0, 1).reshape(b, e * cap, d)
+    ys = maybe_constrain_moe(ye.reshape(e, b, cap, d).transpose(0, 1)).reshape(b, e * cap, d)
     return _combine(ys, info, s, moe.top_k)
 
 
@@ -146,6 +149,10 @@ def aux_load_balance_loss(params: Params, x: torch.Tensor, moe: MoEConfig) -> to
     logits = x2.float() @ params["router"]
     probs = torch.softmax(logits, dim=-1)
     _, top_idx = torch.topk(logits, moe.top_k, dim=-1)
-    counts = torch.bincount(top_idx.reshape(-1), minlength=moe.n_experts).float()
+    # Counted by comparison with every expert id (not ``bincount``, whose
+    # output shape depends on the values: DTensor and fake tensors cannot
+    # propagate it).  The counts are exact integers either way.
+    ids = torch.arange(moe.n_experts, device=top_idx.device)
+    counts = (top_idx.reshape(-1, 1) == ids).sum(0).float()
     frac = counts / counts.sum()
     return moe.n_experts * torch.sum(frac * probs.mean(0))

@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.runtime.sharding import rowwise
 
 from .layers import Params, dense_init, normal_init, rmsnorm
 
@@ -175,7 +176,8 @@ def mamba_block(params: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tenso
     if pad:
         xs, dt, B, C = (F.pad(t, (0, 0, 0, pad)) for t in (xs, dt, B, C))
     xh = xs.reshape(b, s + pad, nh, ssm.head_dim)
-    y = ssd_chunked(xh.float(), dt, A, B.float(), C.float(), params["D"], ssm.chunk)
+    y = rowwise(ssd_chunked, xh.float(), dt, A, B.float(), C.float(), params["D"], ssm.chunk,
+                batched=(True, True, False, True, True, False, False))
     y = y[:, :s].reshape(b, s, di).to(x.dtype)
     y = rmsnorm(y * F.silu(z), params["norm_w"], cfg.norm_eps)
     return y @ params["out_proj"]

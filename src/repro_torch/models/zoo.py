@@ -3,7 +3,7 @@ carried across from the reference for every family (dense, MoE, SSM,
 hybrid, VLM and the encoder-decoder)."""
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -81,6 +81,35 @@ def input_specs(
     if shape.kind == "train":
         specs["labels"] = ((b, n_text), torch.int64)
     return specs
+
+
+def abstract_params(cfg: ArchConfig) -> Params:
+    """The parameter tree on the ``meta`` device: shapes and dtypes, nothing
+    allocated or drawn (the dry-run and the sharding layouts)."""
+    return build_model(cfg).init(None, "meta")
+
+
+def abstract_decode_state(cfg: ArchConfig, shape: ShapeConfig):
+    """The decode state of a ``shape.kind == "decode"`` cell on the ``meta``
+    device (the encoder-decoder's from an encoder pass over meta frames).
+    The pass takes the plain blocked attention, which meta tensors run; the
+    shapes are the config's attention's."""
+    meta_cfg = replace(cfg, attn_impl="chunked")
+    bundle = build_model(meta_cfg)
+    params = abstract_params(meta_cfg)
+    b = shape.global_batch
+    if cfg.family == "encdec":
+        frames = torch.empty((b, cfg.n_frames, cfg.d_model), dtype=dtype_of(cfg.compute_dtype),
+                             device="meta")
+        return bundle.decode_init(params, {"frames": frames}, shape.seq_len)
+    tokens = torch.empty((b, 1), dtype=torch.int64, device="meta")
+    return bundle.decode_init(params, {"tokens": tokens}, shape.seq_len)
+
+
+def abstract_inputs(cfg: ArchConfig, shape: ShapeConfig, **kw) -> Dict[str, torch.Tensor]:
+    """:func:`input_specs` as ``meta`` tensors."""
+    return {name: torch.empty(s, dtype=dt, device="meta")
+            for name, (s, dt) in input_specs(cfg, shape, **kw).items()}
 
 
 # ---------------------------------------------------------------------------

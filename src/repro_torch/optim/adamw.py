@@ -14,7 +14,9 @@ Functional, as the reference: ``init(params) -> AdamWState`` and
 ``update(grads, state, params) -> (params, state, metrics)`` over the
 port's parameter trees, new tensors out and the inputs untouched.  The
 update runs as ``torch._foreach_*`` operations over every leaf at once, in
-the reference's order of operations.
+the reference's order of operations; over DTensor leaves (the sharded
+train step) the same operations run on each rank's shards, and the global
+norm is one reduction over the whole mesh (:func:`_sum_of_squares`).
 """
 from __future__ import annotations
 
@@ -69,6 +71,48 @@ def _fp32_copies(tensors):
     return [t.to(torch.float32, copy=True) for t in tensors]
 
 
+def _sum_of_squares(squares) -> torch.Tensor:
+    """The sum of every element of ``squares``, leaf after leaf.
+
+    For DTensor leaves (a sharded train step), each rank sums the local
+    shards it owns (a shard replicated over a mesh axis is owned by that
+    axis' coordinate 0) in the same order, and one all-reduce over the
+    whole mesh adds the ranks' sums.  So every rank clips by the same
+    scale, bit for bit, where DTensor would reduce each leaf's partial sums
+    axis by axis; on a one-rank mesh it is the plain sum."""
+    from torch.distributed.tensor import DTensor
+
+    if not squares or not isinstance(squares[0], DTensor):
+        return sum(torch.sum(sq) for sq in squares)
+    import torch.distributed._functional_collectives as funcol
+
+    mesh = squares[0].device_mesh
+    coord = mesh.get_coordinate()
+    total = None
+    for sq in squares:
+        if any(p.is_replicate() and c != 0 for p, c in zip(sq.placements, coord)):
+            continue
+        term = torch.sum(sq.to_local())
+        total = term if total is None else total + term
+    if total is None:
+        total = torch.zeros((), dtype=squares[0].dtype, device=squares[0].to_local().device)
+    if mesh.size() == 1:
+        return total
+    return funcol.wait_tensor(funcol.all_reduce(total, "sum", _whole_mesh(mesh)))
+
+
+def _whole_mesh(mesh):
+    """``mesh`` as one dim (its process group spans every rank of it).
+    Made outside any dispatch mode: the mesh's rank table is a tensor, and
+    a fake one (a dry-run) cannot be indexed."""
+    if mesh.ndim == 1:
+        return mesh
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    with _disable_current_modes():
+        return mesh._flatten()
+
+
 def make_adamw(cfg: AdamWConfig):
     m_dt, v_dt, master_dt = DTYPES[cfg.m_dtype], DTYPES[cfg.v_dtype], DTYPES[cfg.master_dtype]
 
@@ -88,7 +132,7 @@ def make_adamw(cfg: AdamWConfig):
 
         # Global-norm clip in fp32.
         g32 = _fp32_copies(tree_leaves(grads))
-        gnorm = torch.sqrt(sum(torch.sum(sq) for sq in torch._foreach_mul(g32, g32)))
+        gnorm = torch.sqrt(_sum_of_squares(torch._foreach_mul(g32, g32)))
         scale = torch.clamp(torch.full_like(gnorm, cfg.clip_norm) / (gnorm + 1e-9), max=1.0)
         torch._foreach_mul_(g32, scale)
 

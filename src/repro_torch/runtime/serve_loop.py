@@ -19,9 +19,9 @@ step and its argmax; a prompt replays the B = 1 graph once a position), a
 :class:`PagedGraphs` (the paged step, and one chunked-prefill graph per
 chunk length), and the speculative verify graphs (k + 1 decode steps each).
 
-Not ported yet (ROADMAP Queue 1 item 10): the sharded per-cell entry
-points (``shard_prefill_step`` / ``shard_decode_step``), which wait with the
-tensor-parallel layout of the sharding layer.
+The sharded per-cell entry points (:func:`shard_prefill_step`,
+:func:`shard_decode_step`) run the model's prefill and decode step over
+DTensors on a ``DeviceMesh``, laid out by the sharding policy.
 """
 from __future__ import annotations
 
@@ -43,10 +43,16 @@ from repro_torch.balancer import (
     PromptTooLongError,
     Server,
 )
-from repro_torch.configs.base import NOT_SHARDED, ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.device import resolve_device
 from repro_torch.graphs import StaticGraph
-from repro_torch.models import ModelBundle, build_model
+from repro_torch.models import (
+    ModelBundle,
+    abstract_decode_state,
+    abstract_inputs,
+    abstract_params,
+    build_model,
+)
 from repro_torch.models.attention import KVCache
 from repro_torch.models.lm import (
     DecodeState,
@@ -58,6 +64,14 @@ from repro_torch.models.lm import (
     paged_reset_slot,
     slot_insert,
 )
+
+from .sharding import (
+    ShardingPolicy,
+    batch_shardings,
+    decode_state_shardings,
+    params_shardings,
+)
+from .train_loop import ShardedStep
 
 MODES = ("continuous", "generation", "paged", "speculative")
 
@@ -741,11 +755,42 @@ def serving_metrics(gens: List[Generation], wall_s: float, summary: Optional[dic
     return out
 
 
-# The reference's sharded per-cell entry points, not ported yet.
-_REFERENCE_ONLY = ("shard_prefill_step", "shard_decode_step")
+# ---------------------------------------------------------------------------
+# The sharded per-cell entry points
+# ---------------------------------------------------------------------------
+def shard_prefill_step(cfg: ArchConfig, shape: ShapeConfig, policy: ShardingPolicy):
+    """The prefill over a ``DeviceMesh``: ``fn(params, batch)`` -> the
+    last-position logits (B, 1, V) as a DTensor, with the config's
+    attention (the flash kernel on the card, on each rank's shards), under
+    ``activation_sharding(policy)``.  Returns ``(fn, (params_abs,
+    batch_abs))``, the abstract values ``meta`` tensors."""
+    bundle = build_model(cfg)
+    params_abs = abstract_params(cfg)
+    batch_abs = abstract_inputs(cfg, shape)
+    p_sh = params_shardings(policy, params_abs, cfg)
+    b_sh = batch_shardings(policy, batch_abs)
+    return ShardedStep(bundle.prefill, policy, (p_sh, b_sh)), (params_abs, batch_abs)
 
 
-def __getattr__(name: str):
-    if name in _REFERENCE_ONLY:
-        raise NotImplementedError(f"serve_loop.{name}: {NOT_SHARDED}")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+def shard_decode_step(cfg: ArchConfig, shape: ShapeConfig, policy: ShardingPolicy):
+    """One decode step over a ``DeviceMesh``: ``fn(params, state, batch)``
+    -> (logits (B, 1, V), state), ``batch = {"tokens": (B, 1)}``.
+
+    The state is laid out by ``decode_state_shardings`` (the cache's W on
+    the model axis where the KV heads do not divide it) and written in
+    place, each rank writing the new entries that fall in its shard (the
+    reference donates the state); no activation constraints, as in the
+    reference.  Returns ``(fn, (params_abs, state_abs, tokens_abs))``."""
+    bundle = build_model(cfg)
+    params_abs = abstract_params(cfg)
+    state_abs = abstract_decode_state(cfg, shape)
+    tokens_abs = abstract_inputs(cfg, shape)  # {"tokens": (B, 1)}
+    p_sh = params_shardings(policy, params_abs, cfg)
+    s_sh = decode_state_shardings(policy, state_abs)
+    t_sh = batch_shardings(policy, tokens_abs)
+
+    def step(params, state, batch):
+        return bundle.decode_step(params, state, batch["tokens"])
+
+    return (ShardedStep(step, policy, (p_sh, s_sh, t_sh), constrain=False),
+            (params_abs, state_abs, tokens_abs))

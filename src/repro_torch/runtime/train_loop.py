@@ -6,21 +6,42 @@ The reference's ``runtime/train_loop.py`` for one card.  Training takes the
 reference's training attention, the plain blocked online-softmax loop
 (``attn_impl="chunked"``), whatever attention a config serves with: the
 flash kernel has no backward (nor had the Pallas kernel it replaces) and
-refuses autograd.  The sharded step (``shard_train_step``) is not ported
-yet (ROADMAP Queue 1 item 10).
+refuses autograd.
+
+:func:`shard_train_step` runs the same step over DTensors on a
+``DeviceMesh``: parameters, AdamW state and batch laid out by the policy's
+specs, activations constrained by the model's hooks, and the parameter and
+optimizer leaves updated in place (the reference donates them).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import NOT_SHARDED, ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import build_model
+from repro_torch.models import abstract_inputs, abstract_params, build_model
 from repro_torch.optim.adamw import DTYPES, AdamWConfig, AdamWState, make_adamw
-from repro_torch.optim.tree import divide, tree_map, value_and_grad
+from repro_torch.optim.tree import (
+    divide,
+    tree_leaves,
+    tree_map,
+    tree_unflatten,
+    value_and_grad,
+)
+
+from .sharding import (
+    NamedSharding,
+    P,
+    ShardingPolicy,
+    activation_sharding,
+    batch_shardings,
+    params_shardings,
+    place_tree,
+    sharded_region,
+)
 
 # The attention every training step takes (the reference's default).
 TRAIN_ATTN_IMPL = "chunked"
@@ -76,8 +97,7 @@ def make_grad_fn(cfg: ArchConfig, rt: TrainRuntime):
     def grad_fn(params, batch):
         if k == 1:
             return value_and_grad(loss_fn, params, batch)
-        grads = tree_map(lambda p: torch.zeros(p.shape, dtype=gdt or p.dtype, device=p.device),
-                         params)
+        grads = tree_map(lambda p: torch.zeros_like(p, dtype=gdt or p.dtype), params)
         loss = None
         for i in range(k):
             mb_loss, g = value_and_grad(loss_fn, params, {name: x[i] for name, x in batch.items()})
@@ -113,11 +133,102 @@ def make_train_fns(cfg: ArchConfig, rt: TrainRuntime):
     return init_fn, train_step
 
 
-# The reference's sharded (pjit) step, not ported yet.
-_REFERENCE_ONLY = ("shard_train_step",)
+def microbatched_runtime(rt: TrainRuntime, shape: ShapeConfig, policy: ShardingPolicy):
+    """``rt`` with its microbatch count halved until each microbatch's batch
+    divides the DP extent (the reference's rule: otherwise the surplus mesh
+    axes idle and compute replicates)."""
+    mb = rt.microbatches
+    while mb > 1 and (shape.global_batch // mb) % policy.dp_size != 0:
+        mb //= 2
+    return rt if mb == rt.microbatches else replace(rt, microbatches=mb)
 
 
-def __getattr__(name: str):
-    if name in _REFERENCE_ONLY:
-        raise NotImplementedError(f"train_loop.{name}: {NOT_SHARDED}")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+class ShardedStep:
+    """A step over DTensors: ``in_shardings`` is a tuple of sharding trees,
+    one a positional argument.  A call places each plain leaf by its
+    sharding (a DTensor leaf is taken as it is) and runs ``fn`` under
+    ``activation_sharding(policy)``."""
+
+    def __init__(self, fn, policy: ShardingPolicy, in_shardings: Tuple, *,
+                 constrain: bool = True) -> None:
+        self.fn = fn
+        self.policy = policy
+        self.in_shardings = in_shardings
+        self.constrain = constrain
+
+    def place(self, *args):
+        """The arguments with every plain leaf distributed by its sharding."""
+        return tuple(place_tree(a, sh) for a, sh in zip(args, self.in_shardings))
+
+    def __call__(self, *args):
+        args = self.place(*args)
+        with sharded_region(), activation_sharding(self.policy if self.constrain else None):
+            return self.fn(*args)
+
+
+def shard_train_step(
+    cfg: ArchConfig,
+    shape: ShapeConfig,
+    policy: ShardingPolicy,
+    rt: Optional[TrainRuntime] = None,
+):
+    """The train step over a ``DeviceMesh`` and the abstract inputs.
+
+    Returns ``(fn, (params_abs, opt_abs, batch_abs))``: the abstract values
+    are ``meta`` tensors (nothing allocated), and ``fn(params, opt_state,
+    batch) -> (params, opt_state, metrics)`` is a :class:`ShardedStep`.
+    Parameters, AdamW state and batch are laid out by ``params_shardings``
+    and ``batch_shardings`` (the batch microbatched as (k, B/k, ...) where
+    ``rt.microbatches`` k > 1); the step trains with
+    :data:`TRAIN_ATTN_IMPL`, reduces each gradient to its parameter's
+    layout, and updates the parameter and optimizer leaves in place, so the
+    returned trees are the DTensors it was given (the reference donates
+    them).  ``metrics`` holds replicated plain tensors."""
+    from torch.distributed.tensor import DTensor
+
+    rt = microbatched_runtime(rt or get_runtime(cfg.arch_id), shape, policy)
+    cfg = training_config(cfg)
+    grad_fn = make_grad_fn(cfg, rt)
+    opt_init, opt_update = make_adamw(rt.adamw)
+
+    params_abs = abstract_params(cfg)
+    opt_abs = opt_init(params_abs)
+    batch_abs = abstract_inputs(cfg, shape)
+    k = rt.microbatches
+    if k > 1:
+        batch_abs = {name: torch.empty((k, t.shape[0] // k, *t.shape[1:]), dtype=t.dtype,
+                                       device="meta") for name, t in batch_abs.items()}
+
+    p_sh = params_shardings(policy, params_abs, cfg)
+    o_sh = AdamWState(
+        step=NamedSharding(policy.mesh, P()),
+        m=params_shardings(policy, opt_abs.m, cfg),
+        v=params_shardings(policy, opt_abs.v, cfg),
+        master=params_shardings(policy, opt_abs.master, cfg)
+        if opt_abs.master is not None else None,
+    )
+    b_sh = batch_shardings(policy, batch_abs, microbatched=k > 1)
+
+    def step(params, opt_state: AdamWState, batch):
+        loss, grads = grad_fn(params, batch)
+        leaves = tree_leaves(params)
+        grads = tree_unflatten(params, [
+            g.redistribute(p.device_mesh, p.placements) if isinstance(g, DTensor) else g
+            for g, p in zip(tree_leaves(grads), leaves)])
+        new_params, new_opt, metrics = opt_update(grads, opt_state, params)
+        # In place: the inputs' buffers take the outputs (donation).
+        for old, new in zip(leaves + tree_leaves(opt_state),
+                            tree_leaves(new_params) + tree_leaves(new_opt)):
+            old.copy_(new)
+        metrics["loss"] = loss
+        metrics = {name: _replicated(v) for name, v in metrics.items()}
+        return params, opt_state, metrics
+
+    return ShardedStep(step, policy, (p_sh, o_sh, b_sh)), (params_abs, opt_abs, batch_abs)
+
+
+def _replicated(x: torch.Tensor) -> torch.Tensor:
+    """A metric as a plain tensor of its full (reduced) value."""
+    from torch.distributed.tensor import DTensor
+
+    return x.full_tensor() if isinstance(x, DTensor) else x

@@ -311,11 +311,17 @@ def test_families_registered_and_the_rest_refused():
     from repro_torch.models import encdec
     from repro_torch.runtime import train_loop
 
-    # Training is ported (item 9): the losses are functions; the sharded
-    # train step stays refused (item 10).
+    # Training is ported (item 9): the losses are functions; so is the
+    # sharded train step (item 10), whose layout refuses a mesh without a
+    # "model" axis as the reference's does.
+    from repro_torch.configs import SHAPES
+    from repro_torch.runtime import sharding
+
     assert callable(lm.lm_loss) and callable(encdec.lm_loss)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        train_loop.shard_train_step
+    assert callable(train_loop.shard_train_step)
+    no_model_axis = type("M", (), {"shape": {"data": 8}, "axis_names": ("data",)})()
+    with pytest.raises(KeyError):
+        sharding.choose_policy(ARCHS["qwen2-0.5b"], SHAPES["train_4k"], no_model_axis)
     reduced = ARCHS["zamba2-1.2b"].reduced()
     assert (reduced.n_layers, reduced.shared_attn_every, reduced.ssm.d_state,
             reduced.ssm.head_dim, reduced.ssm.chunk) == (4, 2, 16, 16, 16)

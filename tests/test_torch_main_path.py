@@ -150,13 +150,15 @@ def test_device_defaults_to_card_and_never_falls_back():
 
 
 def test_later_slices_raise_not_implemented(tmp_path):
-    """What is still unported raises and names its ROADMAP item: the
-    tensor-parallel layout, the sharded serving steps and the sharded train
-    step (item 10).  The training losses of the decoder-only and
-    encoder-decoder families (item 9), which raised here before training
-    was ported, are functions now.  The ensemble runner's on-disk
-    checkpoints, which raised here before the checkpoint module was ported,
-    now take effect."""
+    """Nothing of the reference is refused any more.  The sharded serving
+    and train steps and the tensor-parallel layout (item 10), which raised
+    here before the sharding layer was ported, are functions now and
+    refuse a bad argument as the reference's do; so are the training
+    losses (item 9).  The ensemble runner's on-disk checkpoints, which
+    raised here before the checkpoint module was ported, now take
+    effect."""
+    from repro.runtime import sharding as jax_sharding
+    from repro_torch.configs import ARCHS, SHAPES
     from repro_torch.configs.base import ArchConfig
     from repro_torch.models import encdec, lm
     from repro_torch.runtime import serve_loop, sharding, train_loop
@@ -164,12 +166,15 @@ def test_later_slices_raise_not_implemented(tmp_path):
     ArchConfig(arch_id="m", family="encdec", n_layers=1, d_model=8, n_heads=1,
                n_kv_heads=1, d_ff=8, vocab=8)
     assert callable(encdec.lm_loss) and callable(lm.lm_loss)
-    for unported in (lambda: serve_loop.shard_decode_step,
-                     lambda: serve_loop.shard_prefill_step,
-                     lambda: train_loop.shard_train_step,
-                     lambda: sharding.param_spec(None, [], None)):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            unported()
+    for ported in (serve_loop.shard_decode_step, serve_loop.shard_prefill_step,
+                   train_loop.shard_train_step):
+        assert callable(ported)
+    for package in (sharding, jax_sharding):
+        with pytest.raises(AttributeError):
+            package.param_spec(None, [], None)
+    no_model_axis = type("M", (), {"shape": {"data": 8}, "axis_names": ("data",)})()
+    with pytest.raises(KeyError):
+        sharding.choose_policy(ARCHS["qwen2-0.5b"], SHAPES["train_4k"], no_model_axis)
     from repro_torch.core import MLDASampler
 
     flat = lambda t: 0.0  # noqa: E731

@@ -157,9 +157,17 @@ def test_data_mesh_devices_and_refusals():
             data_mesh()
         with pytest.raises(RuntimeError, match="device='cpu'"):
             data_policy()
-    for name in ("choose_policy", "param_spec", "activation_sharding"):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            getattr(sharding, name)()
+    # The tensor-parallel layout is ported (item 10): each refuses a bad
+    # argument as the reference's does, and the context takes a policy.
+    from repro.runtime import sharding as jax_sharding
+
+    for package in (sharding, jax_sharding):
+        with pytest.raises(KeyError):
+            package.choose_policy(None, None, FakeMesh((("data", 8),)))
+        with pytest.raises(AttributeError):
+            package.param_spec(None, [], None)
+        with package.activation_sharding(None):
+            pass
 
 
 class FakeMesh:
