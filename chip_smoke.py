@@ -173,17 +173,22 @@ Phases (any failure exits non-zero; there is no CPU path):
    cross-attention plain), each call held, teacher-forced decode steps
    against ``decode_train`` (fp32 on a 2 + 2 layer cut within 2e-3; bf16
    by phase 5's rule), and the serving engine's refusal; each held call
-   is timed beside SDPA's time at its shape and its bound;
+   is timed beside SDPA's time at its shape and its bound (a windowed
+   call: SDPA with the band as an explicit additive mask);
 7. training, no kernel launched (the path takes the plain blocked
    attention, as the reference's training does): (a) smollm-360m at full
-   width in bf16 through ``launch.train``'s functions, 30 steps of seq 256
-   x batch 8 on the Markov pipeline (bf16 moments, no master copy, the
-   launcher's warmup): every loss and grad norm finite, the mean loss of
-   steps 26-30 at least ``LOSS_DROP`` below that of steps 1-5; the step
-   time (CUDA events, median of the last 20), tokens/s and the peak memory
-   above the start; (b) on a two-block cut, 6 steps straight against
-   3 + save (bf16 leaves) + restore into a fresh trainer + 3 through the
-   launcher's ``run``, parameters and optimizer state bit for bit under
+   width in bf16 through ``launch.train``'s trainer, one CUDA graph a step
+   over donated state (``GraphTrainStep``: 1 capture, 29 replays), 30
+   steps of seq 256 x batch 8 on the Markov pipeline (bf16 moments, no
+   master copy, the launcher's warmup): every loss and grad norm finite,
+   the mean loss of steps 26-30 at least ``LOSS_DROP`` below that of steps
+   1-5; the step time (CUDA events, median of the last 20), tokens/s and
+   the peak memory above the start, then the same for the functional
+   (eager) step on a copy of the state, and the profiled device operations
+   and busy share of one replayed and one eager step; (b) on a two-block
+   cut, 6 steps straight against 3 + save (bf16 leaves) + restore into a
+   fresh trainer + 3 through the launcher's ``run`` (graph trainers),
+   parameters and optimizer state bit for bit under
    ``torch.use_deterministic_algorithms(True)``; (c) the cut in fp32: the
    card's loss and gradients against the CPU's on the same params and
    batch, microbatches 2 against 1, remat on against off bit for bit, and
@@ -193,13 +198,18 @@ Phases (any failure exits non-zero; there is no CPU path):
    loss and gradient in bf16 of every other family on 6c/6d's depth cuts:
    loss finite, every gradient leaf finite and not all zero; (f) a loss
    through ``attn_impl="kernel"`` under autograd raises the kernel's
-   refusal;
+   refusal; (g) under deterministic algorithms, 6 steps through the graph
+   trainer against 6 functional eager steps from the same state, at full
+   width, on the two-block cut with microbatches 2, and on two-block cuts
+   of granite-moe-3b-a800m and mamba2-1.3b: 0 unequal values in params,
+   m, v, step, loss, lr and grad norm;
 8. the sharded steps on a (1, 1) ``DeviceMesh`` of the card (an NCCL group
    of one rank on a local store, set up and torn down at the phase's
    edges): (a) smollm-360m at phase 7's shape through ``shard_train_step``
    under the pure-DP and the TP policy, 3 steps each: loss, grad norm,
-   parameters and AdamW state bit for bit against the unsharded step under
-   deterministic algorithms, and the step times (DTensor's host cost);
+   parameters and AdamW state bit for bit against the functional (eager)
+   unsharded step under deterministic algorithms, and the step times
+   (DTensor's host cost over that step);
    (b) qwen2-0.5b's ``shard_prefill_step`` at prefill_32k (batch cut to 1):
    logits bit for bit, the flash kernel launched once a layer through
    ``local_map``; (c) ``shard_decode_step`` at decode_32k (batch cut to 8),
@@ -3003,7 +3013,8 @@ def flash_call_check(torch, label, call, phase: str, iters: int = 3) -> dict:
     """The main path's first flash call held against the plain blocked loop
     on the same inputs (the bf16 absolute and per-row bounds), then the
     kernel and ``scaled_dot_product_attention`` on them timed with CUDA
-    events (a window is SDPA's boolean mask), beside the bound."""
+    events (a window is an explicit band mask: ``band_sdpa_ms``), beside
+    the bound."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -3023,13 +3034,13 @@ def flash_call_check(torch, label, call, phase: str, iters: int = 3) -> dict:
     del got, want, diff
     ms = device_time_ms(torch, lambda: fa_kernel(q, k, v, causal=causal, window=window), iters,
                         warmup=1)
-    # SDPA has no sliding window (a boolean mask would send it to a
-    # materialising path), so a windowed call has no library time.
-    lib_ms = None
     if window is None:
         with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]):
             lib_ms = device_time_ms(torch, lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=causal, enable_gqa=True), iters, warmup=1)
+        lib_note = ""
+    else:
+        lib_ms, lib_note = band_sdpa_ms(torch, q, k, v, window, iters)
     bound = bound_ms((2 * h + 2 * hkv) * b * s * d * q.element_size(),
                      4 * b * h * d * visible_pairs(s, causal, window), PEAK_BF16_FLOPS)
     shape = f"({b}, {h}, {hkv}, {s}, {d}) {str(q.dtype)[6:]} " + (
@@ -3037,15 +3048,57 @@ def flash_call_check(torch, label, call, phase: str, iters: int = 3) -> dict:
     print(f"[{phase}] {label}: the path's flash call {shape} vs attention_chunked: max abs err "
           f"{err:.3e} (limit {FLASH_BF16_ATOL:.3e}), max row-relative err {row:.3e} (limit "
           f"{FLASH_BF16_ROW_RTOL:.3e}); device time {ms:.4f} ms (CUDA events, {iters} calls), "
-          "scaled_dot_product_attention "
-          + ("none (no window)" if lib_ms is None else f"{lib_ms:.4f} ms")
-          + f", bound {bound[0]:.4f} ms by {bound[1]}")
+          "scaled_dot_product_attention " + ("refused" if lib_ms is None else f"{lib_ms:.4f} ms")
+          + f"{lib_note}, bound {bound[0]:.4f} ms by {bound[1]}")
     if not (err < FLASH_BF16_ATOL and row < FLASH_BF16_ROW_RTOL):
         fail(f"{label}: the flash kernel at {shape} differs from attention_chunked by {err} "
              f"(row-relative {row})")
     return {"shape": shape, "family": label, "ms": ms, "library_ms": lib_ms,
+            **({"library_call": lib_note.strip(" ()")} if lib_note else {}),
             "bound_ms": bound[0], "bound_by": bound[1], "max_abs_err": err,
             "max_row_rel_err": row}
+
+
+def band_sdpa_ms(torch, q, k, v, window: int, iters: int):
+    """SDPA's time for a causal sliding-window call: SDPA has no window, so
+    the band (key j seen by query i where i - window < j <= i) goes in as
+    an explicit additive mask (0 inside, -inf outside, in q's dtype, made
+    beforehand), which only the memory-efficient backend takes (flash
+    refuses masks).  Tried with ``enable_gqa=True`` first; if the card
+    refuses that, with K and V repeated to the query heads beforehand
+    (outside the timed call) -> (ms or None if both are refused, a note
+    saying which call, what was refused and the output's largest
+    difference from the kernel's)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    s, g = q.shape[2], q.shape[1] // k.shape[1]
+    i = torch.arange(s, device=q.device)
+    band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+    mask = torch.zeros((s, s), dtype=q.dtype, device=q.device).masked_fill_(~band, -math.inf)
+    del band
+    note = f" (additive band mask {s} x {s}, memory-efficient backend"
+    calls = [("enable_gqa", lambda: partial(F.scaled_dot_product_attention, q, k, v,
+                                            attn_mask=mask, enable_gqa=True)),
+             (f"K and V repeated {g}x to the query heads", lambda: partial(
+                 F.scaled_dot_product_attention, q, k.repeat_interleave(g, dim=1),
+                 v.repeat_interleave(g, dim=1), attn_mask=mask))]
+    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+        for label, make in calls:
+            try:
+                call = make()
+                out = call()
+            except RuntimeError as e:  # no backend for it, or out of memory
+                note += f"; {label} refused: {str(e).splitlines()[0][:200]}"
+                continue
+            diff = float((out.float() - fa.flash_attention(q, k, v, causal=True, window=window)
+                          .float()).abs().max())
+            del out
+            ms = device_time_ms(torch, call, iters, warmup=1)
+            return ms, note + f"; {label}; max abs difference from the kernel {diff:.3e})"
+    return None, note + ")"
 
 
 def main_path_run(torch, label, fn, want_launches: int, phase: str):
@@ -3436,6 +3489,16 @@ FAMILY_GRAD_LEFT_OUT = {
 }
 
 
+# What may stay allocated after 7a's trainers are dropped: far below the
+# 2 GiB of state (and the graph's pool) that one kept alive would hold.
+TRAINER_LEFT_BYTES = 2**29
+# (g) The graph trainer against the eager step from the same state, steps
+# each, under deterministic algorithms; besides smollm, the MoE dispatch
+# (sort, searchsorted, scatter) and the chunked SSD under capture.
+GRAPH_EAGER_STEPS = 6
+GRAPH_EAGER_FAMILIES = ("granite-moe-3b-a800m", "mamba2-1.3b")
+
+
 def _smollm_cut(dtype: str = "bfloat16"):
     from repro_torch.configs import ARCHS
 
@@ -3448,12 +3511,42 @@ def _all_finite(tree) -> bool:
     return all(bool(t.isfinite().all()) for t in tree_leaves(tree))
 
 
+def _median(xs):
+    xs = sorted(xs)
+    n = len(xs)
+    return xs[n // 2] if n % 2 else (xs[n // 2 - 1] + xs[n // 2]) / 2
+
+
+def _clone_tree(tree):
+    from repro_torch.optim.tree import tree_leaves, tree_unflatten
+
+    return tree_unflatten(tree, [t.clone() for t in tree_leaves(tree)])
+
+
+def _timed_steps(torch, step_fn, steps):
+    """``step_fn(step)`` for each step, each between two CUDA events ->
+    (the metrics of each step, the ms of each step)."""
+    metrics, events = [], []
+    for step in steps:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics.append(step_fn(step))
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return metrics, [s.elapsed_time(e) for s, e in events]
+
+
 def train_full_width(torch, smi: str) -> dict:
     """(a) 30 steps of smollm-360m at full width through the launcher's
-    functions: every loss and grad norm finite, the loss falling by
-    LOSS_DROP; the step time from CUDA events, tokens/s and the peak memory
-    above the start."""
+    trainer (one CUDA graph a step: the first step is the capture's eager
+    warm-up, the other 29 replays): every loss and grad norm finite, the
+    loss falling by LOSS_DROP; the step time from CUDA events, tokens/s and
+    the peak memory above the start; then the functional (eager) step on a
+    copy of the state, timed the same way; one replayed and one eager step
+    under the profiler."""
     from repro_torch.configs import ARCHS
+    from repro_torch.kernels import build
     from repro_torch.launch.train import make_trainer
 
     torch.cuda.synchronize()
@@ -3465,79 +3558,122 @@ def train_full_width(torch, smi: str) -> dict:
     torch.cuda.synchronize()
     state = torch.cuda.memory_allocated() - base
     init_s = time.perf_counter() - t0
-    metrics, events = [], []
+    replays = build.counter(f"graph_replays {trainer.train_step.name}")
+    replays.reset()
     t0 = time.perf_counter()
-    for step in range(TRAIN_STEPS):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        metrics.append(trainer.step(step))
-        end.record()
-        events.append((start, end))
-    torch.cuda.synchronize()
+    metrics, ms_all = _timed_steps(torch, trainer.step, range(TRAIN_STEPS))
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() - base
+    reserved = torch.cuda.memory_reserved()
+    n_replays, captures = replays.value, int(trainer.train_step.captured)
     losses = [float(m["loss"]) for m in metrics]
     gnorms = [float(m["grad_norm"]) for m in metrics]
     if not all(math.isfinite(x) for x in losses + gnorms):
         fail(f"7a: a loss or grad norm is not finite: {losses} {gnorms}")
     if not _all_finite(trainer.params):
         fail("7a: the trained parameters are not finite")
-    ms = sorted(s.elapsed_time(e) for s, e in events[-TRAIN_TIMED:])
-    median = ms[len(ms) // 2] if len(ms) % 2 else (ms[len(ms) // 2 - 1] + ms[len(ms) // 2]) / 2
+    ms = sorted(ms_all[-TRAIN_TIMED:])
+    median = _median(ms)
     tokens = TRAIN_SEQ_LEN * TRAIN_BATCH
     first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
     n_params = sum(t.numel() for t in _leaves(trainer.params))
     print(f"[7a] {TRAIN_ARCH} at full width ({n_params:,} parameters, bf16, moments bf16, no "
           f"master copy), seq {TRAIN_SEQ_LEN} x batch {TRAIN_BATCH}: {TRAIN_STEPS} steps in "
-          f"{wall:.2f} s (init {init_s:.2f} s)")
+          f"{wall:.2f} s (init {init_s:.2f} s) through the launcher's graph trainer: captures "
+          f"{captures}, replays {n_replays} (the first step is the capture's eager warm-up: "
+          f"{ms_all[0]:.1f} ms with the capture); {smi}")
+    if captures != 1 or n_replays != TRAIN_STEPS - 1:
+        fail(f"7a: {captures} captures and {n_replays} replays for {TRAIN_STEPS} steps, want 1 "
+             f"and {TRAIN_STEPS - 1}")
     print(f"[7a] losses {[round(x, 4) for x in losses]}")
     print(f"[7a] grad norms {[round(x, 3) for x in gnorms]}")
     print(f"[7a] mean loss of steps 1-5 {first:.4f}, of steps 26-30 {last:.4f}: fell "
           f"{first - last:.4f} nats (at least {LOSS_DROP})")
     if not first - last >= LOSS_DROP:
         fail(f"7a: the loss fell {first - last:.4f} nats, less than {LOSS_DROP}")
-    print(f"[7a] step time (CUDA events, median of the last {TRAIN_TIMED}) {median:.3f} ms "
-          f"(min {ms[0]:.3f}, max {ms[-1]:.3f}); {tokens / median * 1e3:,.0f} tokens/s; "
+    print(f"[7a] replayed step time (CUDA events, median of the last {TRAIN_TIMED}) {median:.3f} "
+          f"ms (min {ms[0]:.3f}, max {ms[-1]:.3f}); {tokens / median * 1e3:,.0f} tokens/s; "
           f"state (params, m, v) {state / 2**30:.3f} GiB, peak above the start "
-          f"{peak / 2**30:.3f} GiB; {smi}")
+          f"{peak / 2**30:.3f} GiB, reserved by the allocator {reserved / 2**30:.3f} GiB "
+          f"(the graph's pool included); {smi}")
     out = {"step_ms": median, "tokens_per_s": tokens / median * 1e3, "peak_gib": peak / 2**30,
            "loss_first5": first, "loss_last5": last}
-    train_step_parts(torch, trainer)
-    out["device_busy"] = profile_train_step(torch, trainer)
+    train_step_parts(torch, trainer, smi)
+    out["device_busy"] = profile_train_step(torch, "replayed",
+                                            lambda: trainer.step(TRAIN_STEPS), smi)
+    eager = eager_train_steps(torch, trainer, smi)
+    print(f"[7a] replayed against eager in this call: {median:.3f} against {eager['step_ms']:.3f} "
+          f"ms a step ({eager['step_ms'] / median:.2f}x), {tokens / median * 1e3:,.0f} against "
+          f"{tokens / eager['step_ms'] * 1e3:,.0f} tokens/s, peak {peak / 2**30:.3f} against "
+          f"{eager['peak_gib']:.3f} GiB, busy {out['device_busy']:.1%} against "
+          f"{eager['device_busy']:.1%}; {smi}")
+    out.update({f"eager_{k}": v for k, v in eager.items()})
     del trainer, metrics
     return out
 
 
-def profile_train_step(torch, trainer) -> float:
-    """The device's busy share of one train step and its largest device
-    operations, from ``torch.profiler`` with device activity only (a step
-    issues ~16k device operations; host events too would cost tens of
-    seconds to read back) -> the busy share."""
+def eager_train_steps(torch, trainer, smi: str) -> dict:
+    """The functional ``train_step`` of ``make_train_fns`` (eager, one
+    PyTorch operation at a time) on a copy of ``trainer``'s state, on the
+    batches after 7a's: TRAIN_TIMED + 1 steps, the median of the last
+    TRAIN_TIMED, the peak above the start (the copy included) and one step
+    under the profiler."""
+    from repro_torch.runtime.train_loop import make_train_fns
+
+    _, train_step = make_train_fns(trainer.cfg, trainer.rt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    state = [_clone_tree(trainer.params), _clone_tree(trainer.opt_state)]
+
+    def step(i):
+        state[0], state[1], m = train_step(state[0], state[1], trainer.batch(i))
+        return m
+
+    first = TRAIN_STEPS + 1
+    _, ms = _timed_steps(torch, step, range(first, first + TRAIN_TIMED + 1))
+    peak = torch.cuda.max_memory_allocated() - base
+    ms = sorted(ms[-TRAIN_TIMED:])
+    median = _median(ms)
+    print(f"[7a] eager step (the functional train_step on a copy of the state, CUDA events, "
+          f"median of the last {TRAIN_TIMED} of {TRAIN_TIMED + 1}) {median:.3f} ms (min "
+          f"{ms[0]:.3f}, max {ms[-1]:.3f}); {TRAIN_SEQ_LEN * TRAIN_BATCH / median * 1e3:,.0f} "
+          f"tokens/s; peak above the start {peak / 2**30:.3f} GiB; {smi}")
+    busy = profile_train_step(torch, "eager", lambda: step(first + TRAIN_TIMED + 1), smi)
+    del state
+    return {"step_ms": median, "peak_gib": peak / 2**30, "device_busy": busy}
+
+
+def profile_train_step(torch, label: str, step, smi: str) -> float:
+    """The device's busy share of one train step ``step()`` and its largest
+    device operations, from ``torch.profiler`` with device activity only
+    (an eager step issues ~16k device operations; host events too would
+    cost tens of seconds to read back) -> the busy share."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        trainer.step(TRAIN_STEPS)
+        step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
-        print(f"[7a] train step under the profiler: {wall_ms:.1f} ms wall; device time not "
-              "measured (the profiler saw no device operations)")
+        print(f"[7a] {label} train step under the profiler: {wall_ms:.1f} ms wall; device time "
+              f"not measured (the profiler saw no device operations); {smi}")
         return float("nan")
     by_name = Counter()
     for e in kernels:
         by_name[e.name] += e.time_range.elapsed_us() / 1e3
     busy_ms = sum(by_name.values())
-    print(f"[7a] train step under the profiler (device activity): {wall_ms:.1f} ms wall, "
+    print(f"[7a] {label} train step under the profiler (device activity): {wall_ms:.1f} ms wall, "
           f"{len(kernels)} device operations, device time {busy_ms:.1f} ms: busy "
-          f"{busy_ms / wall_ms:.1%}; largest: "
+          f"{busy_ms / wall_ms:.1%}; {smi}; largest: "
           + "; ".join(f"{name[:80]} {t:.2f} ms" for name, t in by_name.most_common(5)))
     return busy_ms / wall_ms
 
 
-def train_step_parts(torch, trainer, repeats: int = 3) -> None:
+def train_step_parts(torch, trainer, smi: str, repeats: int = 3) -> None:
     """Where a step's time goes, by the host's clock with the card
     synchronised between the parts: the batch (the Markov pipeline on the
     host), the loss and gradients (forward, remat's second forward,
@@ -3566,7 +3702,7 @@ def train_step_parts(torch, trainer, repeats: int = 3) -> None:
         del grads
     print("[7a] a step's parts (host clock, card synchronised, median of "
           f"{repeats}): " + "; ".join(f"{k} {sorted(v)[len(v) // 2]:.2f} ms"
-                                      for k, v in parts.items()))
+                                      for k, v in parts.items()) + f"; {smi}")
 
 
 def _trees_equal(torch, a, b) -> int:
@@ -3815,12 +3951,85 @@ def train_refusal(torch) -> None:
     fail("7f: the flash kernel ran under autograd")
 
 
+def graph_vs_eager(torch, label: str, cfg, microbatches: int, smi: str) -> None:
+    """(g) GRAPH_EAGER_STEPS steps through the launcher's graph trainer
+    against the functional eager ``train_step`` from a copy of the same
+    initial state, on the same batches, under deterministic algorithms
+    (on at the capture too): unequal values of the metrics each step and of
+    the state after, 0 required."""
+    import gc
+
+    from repro_torch.launch.train import make_trainer
+    from repro_torch.optim.tree import tree_leaves
+    from repro_torch.runtime.train_loop import make_train_fns
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        trainer = make_trainer(cfg, steps=TRAIN_STEPS, seq_len=TRAIN_SEQ_LEN, batch=TRAIN_BATCH,
+                               microbatches=microbatches, device="cuda")
+        _, train_step = make_train_fns(trainer.cfg, trainer.rt)
+        params, opt = _clone_tree(trainer.params), _clone_tree(trainer.opt_state)
+        unequal, n_values = Counter(), Counter()
+        for step in range(GRAPH_EAGER_STEPS):
+            batch = trainer.batch(step)
+            got = trainer.train_step(batch)
+            params, opt, want = train_step(params, opt, batch)
+            for key in ("loss", "lr", "grad_norm"):
+                unequal[key] += int(not torch.equal(got[key], want[key]))
+                n_values[key] += 1
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    st = trainer.opt_state
+    for key, a, b in (("params", trainer.params, params), ("m", st.m, opt.m), ("v", st.v, opt.v),
+                      ("master", st.master, opt.master), ("step", st.step, opt.step)):
+        for x, y in zip(tree_leaves(a), tree_leaves(b)):
+            unequal[key] += int((x != y).sum())
+            n_values[key] += x.numel()
+    print(f"[7g] {label}, seq {TRAIN_SEQ_LEN} x batch {TRAIN_BATCH}, microbatches "
+          f"{microbatches}: {GRAPH_EAGER_STEPS} steps through the graph trainer (captured "
+          f"{trainer.train_step.captured}) against the eager functional step, deterministic "
+          f"algorithms: unequal values "
+          + ", ".join(f"{k} {unequal[k]} of {n_values[k]:,}" for k in n_values)
+          + f" (0 required); {smi}")
+    if not trainer.train_step.captured or any(unequal.values()):
+        fail(f"7g: {label}: the graph trainer differs from the eager step: {dict(unequal)}")
+    del trainer, params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_graph_checks(torch, smi: str) -> None:
+    """(g) the graph trainer against the eager step, bit for bit, at full
+    width, on the cut with microbatches 2, and on an MoE and an SSM cut."""
+    from repro_torch.configs import ARCHS
+
+    graph_vs_eager(torch, f"{TRAIN_ARCH} at full width", ARCHS[TRAIN_ARCH], 1, smi)
+    graph_vs_eager(torch, f"{TRAIN_ARCH} cut to {TRAIN_CUT} blocks", _smollm_cut(), 2, smi)
+    for name in GRAPH_EAGER_FAMILIES:
+        graph_vs_eager(torch, f"{name} cut to {TRAIN_CUT} blocks",
+                       replace(ARCHS[name], n_layers=TRAIN_CUT), 1, smi)
+
+
 def phase_training(torch, smi: str, ended=lambda phase: None) -> dict:
-    """7: training, (a)-(f); no kernel of the port may launch."""
+    """7: training, (a)-(g); no kernel of the port may launch (the graph
+    trainers' replays are counted apart)."""
     from repro_torch.kernels import build
 
+    import gc
+
     build.reset_counters()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
     out = train_full_width(torch, smi)
+    # Dropping a trainer frees its state and its graph's private pool.
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() - before
+    print(f"[7a] the trainers dropped: {left / 2**20:.1f} MiB left allocated above the phase's "
+          f"start, {torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved after empty_cache")
+    if left > TRAINER_LEFT_BYTES:
+        fail(f"7a: {left / 2**30:.3f} GiB stay allocated after the trainers were dropped")
     ended("7a full width")
     train_resume(torch)
     train_cut_checks(torch)
@@ -3829,9 +4038,13 @@ def phase_training(torch, smi: str, ended=lambda phase: None) -> dict:
     train_families(torch)
     ended("7e families")
     train_refusal(torch)
-    launched = {n: c.value for n, c in build.COUNTERS.items() if c.value}
+    train_graph_checks(torch, smi)
+    ended("7f-g refusal, graph against eager")
+    counts = {n: c.value for n, c in build.COUNTERS.items() if c.value}
+    replays = {n: v for n, v in counts.items() if n.startswith("graph_replays ")}
+    launched = {n: v for n, v in counts.items() if n not in replays}
     print(f"[7] kernel launches during training: {launched or 'none'} (the path takes the plain "
-          "blocked attention)")
+          f"blocked attention); graph replays {replays}")
     if launched:
         fail(f"7: training launched kernels {launched}")
     return out
@@ -3906,18 +4119,6 @@ def _wait_dryruns(procs, timeout: float = 600) -> dict:
     return out
 
 
-def _median(xs):
-    xs = sorted(xs)
-    n = len(xs)
-    return xs[n // 2] if n % 2 else (xs[n // 2 - 1] + xs[n // 2]) / 2
-
-
-def _clone_tree(tree):
-    from repro_torch.optim.tree import tree_leaves, tree_unflatten
-
-    return tree_unflatten(tree, [t.clone() for t in tree_leaves(tree)])
-
-
 def _local(t):
     return t.to_local() if hasattr(t, "to_local") else t
 
@@ -3935,24 +4136,28 @@ def shard_train_checks(torch, mesh, smi: str, phase7_ms) -> dict:
     """(a) smollm-360m at phase 7's shape through ``shard_train_step`` on
     the (1, 1) mesh under the pure-DP and the TP policy, 3 steps each from
     the unsharded step's parameters and batches: loss, grad norm,
-    parameters and AdamW state bit for bit (deterministic algorithms)."""
+    parameters and AdamW state bit for bit against the functional (eager)
+    unsharded step (deterministic algorithms), whose time is the baseline
+    of DTensor's host cost."""
     from repro_torch.configs import ARCHS
     from repro_torch.launch.train import make_trainer
     from repro_torch.optim.tree import tree_leaves
     from repro_torch.runtime.sharding import make_policy
-    from repro_torch.runtime.train_loop import shard_train_step
+    from repro_torch.runtime.train_loop import make_train_fns, shard_train_step
 
     torch.use_deterministic_algorithms(True)
     try:
         trainer = make_trainer(ARCHS[TRAIN_ARCH], steps=TRAIN_STEPS, seq_len=TRAIN_SEQ_LEN,
                                batch=TRAIN_BATCH, device="cuda")
+        _, train_step = make_train_fns(trainer.cfg, trainer.rt)
         p0, o0 = _clone_tree(trainer.params), _clone_tree(trainer.opt_state)
+        p1, o1 = _clone_tree(p0), _clone_tree(o0)
         ref, ref_ms = [], []
         for step in range(SHARD_TRAIN_STEPS):
-            m, ms = _timed_call(torch, lambda: trainer.step(step))
+            (p1, o1, m), ms = _timed_call(torch, lambda: train_step(p1, o1, trainer.batch(step)))
             ref.append(m)
             ref_ms.append(ms)
-        want = tree_leaves((trainer.params, trainer.opt_state))
+        want = tree_leaves((p1, o1))
         out = {"unsharded_ms": _median(ref_ms)}
         for layout in ("dp", "tp"):
             policy = make_policy(mesh, pure_dp=layout == "dp")
@@ -3973,7 +4178,7 @@ def shard_train_checks(torch, mesh, smi: str, phase7_ms) -> dict:
                   f"{SHARD_TRAIN_STEPS} steps; metrics unequal {unequal_metrics}, leaves of "
                   f"params + AdamW state unequal {bad} of {len(want)} ({n_el:,} elements); "
                   f"step {_median(ms_all):.1f} ms (CUDA events, median of "
-                  f"{SHARD_TRAIN_STEPS}) against the unsharded step's "
+                  f"{SHARD_TRAIN_STEPS}) against the unsharded eager step's "
                   f"{out['unsharded_ms']:.1f} ms here and phase 7a's {phase7_ms:.1f} ms; {smi}")
             if bad or unequal_metrics:
                 fail(f"8a: the sharded train step ({layout}) differs from the unsharded one: "
@@ -3987,7 +4192,7 @@ def shard_train_checks(torch, mesh, smi: str, phase7_ms) -> dict:
           f"{out['tp_ms'] - out['unsharded_ms']:.1f} ms (TP) a step over the unsharded "
           f"{out['unsharded_ms']:.1f} ms; {smi}")
     out["host_cost_ms"] = host_ms
-    del trainer, p0, o0, ref, want
+    del trainer, p0, o0, p1, o1, ref, want
     return out
 
 
@@ -4101,9 +4306,10 @@ def dryrun_report(torch, results: dict, phase7: dict, smi: str) -> None:
     tokens = TRAIN_SEQ_LEN * TRAIN_BATCH
     flop_ratio = est["cost"]["flops_per_device"] / (8 * n * tokens)
     peak = est["memory"]["peak_bytes"] / 2**30
-    mem_ratio = peak / phase7["peak_gib"]
+    mem_ratio = peak / phase7["eager_peak_gib"]
     print(f"[8e] {TRAIN_ARCH} seq {TRAIN_SEQ_LEN} x batch {TRAIN_BATCH} on one fake rank: "
-          f"estimated peak {peak:.3f} GiB against phase 7a's {phase7['peak_gib']:.3f} GiB above the "
+          f"estimated peak {peak:.3f} GiB against phase 7a's eager step's "
+          f"{phase7['eager_peak_gib']:.3f} GiB above the "
           f"start ({mem_ratio:.3f}x, bound {MEM_ESTIMATE_BOUNDS}); counted flops "
           f"{est['cost']['flops_per_device']:.4e} = {flop_ratio:.3f} x 8 N T (N {n:,}, T {tokens}; "
           f"bound {FLOP_ESTIMATE_BOUNDS}; attention {est['cost']['attention_flops']:.4e}); "
@@ -4176,7 +4382,7 @@ def phase_sharded_steps(torch, smi: str, phase7: dict, ended=lambda phase: None)
                                 world_size=1)
         try:
             mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
-            shard_train_checks(torch, mesh, smi, phase7["step_ms"])
+            shard_train_checks(torch, mesh, smi, phase7["eager_step_ms"])
             ended("8a sharded train")
             shard_serve_checks(torch, mesh, smi)
             ended("8b-c sharded prefill and decode")

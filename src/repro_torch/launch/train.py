@@ -8,7 +8,9 @@ background every ``--checkpoint-every`` steps).  The flags and the
 ``[train] step ...`` log line are the reference's; ``--device`` is the
 port's (the card by default, ``cpu`` on request).
 
-One process runs the unsharded step.  Launched with a world size above 1
+One process runs the unsharded step as one CUDA graph a step over donated
+state (``train_loop.GraphTrainStep``, the reference's ``jax.jit(train_step,
+donate_argnums=(0, 1))``; eager on the CPU).  Launched with a world size above 1
 (``torchrun``), every process joins the process group (NCCL on cards, gloo
 on the CPU), builds the host mesh ``(world_size, 1)``, and trains through
 ``shard_train_step`` under the pure-DP policy, as the reference's launcher
@@ -39,12 +41,22 @@ from repro_torch.data.pipeline import microbatch, synthetic_lm_batch
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.optim.tree import tree_leaves, tree_unflatten
-from repro_torch.runtime.train_loop import TrainRuntime, make_train_fns, shard_train_step
+from repro_torch.runtime.train_loop import (
+    GraphTrainStep,
+    TrainRuntime,
+    make_train_fns,
+    shard_train_step,
+)
 
 
 @dataclass
 class Trainer:
-    """One training run's model, optimizer state and data stream."""
+    """One training run's model, optimizer state and data stream.
+
+    ``train_step`` is a :class:`GraphTrainStep` in one process (it owns
+    ``params`` and ``opt_state`` and writes them in place), or the sharded
+    step.  ``params`` and ``opt_state`` are the live leaves that the next
+    step overwrites: a caller who keeps them must clone them."""
 
     cfg: ArchConfig
     shape: ShapeConfig
@@ -66,6 +78,8 @@ class Trainer:
 
     def step(self, step: int) -> Dict[str, torch.Tensor]:
         """One update on step ``step``'s batch -> its metrics (0-d tensors)."""
+        if self.sharded is None:
+            return self.train_step(self.batch(step))
         self.params, self.opt_state, metrics = self.train_step(
             self.params, self.opt_state, self.batch(step))
         return metrics
@@ -73,7 +87,8 @@ class Trainer:
     @property
     def state(self):
         """``(params, opt_state)``, whole (a sharded run gathers its shards
-        on every rank: call it on all of them)."""
+        on every rank: call it on all of them); in one process the live
+        leaves."""
         if self.sharded is None:
             return (self.params, self.opt_state)
         leaves = tree_leaves((self.params, self.opt_state))
@@ -83,9 +98,10 @@ class Trainer:
         """Load ``(params, opt_state)`` from ``path`` -> the step it was
         saved at."""
         (params, opt_state), step, _ = restore(path, self.state, device=self.device)
-        if self.sharded is not None:
-            params, opt_state = self.sharded.place(params, opt_state)
-        self.params, self.opt_state = params, opt_state
+        if self.sharded is None:
+            self.train_step.load(params, opt_state)
+        else:
+            self.params, self.opt_state = self.sharded.place(params, opt_state)
         return step
 
 
@@ -94,16 +110,18 @@ def make_trainer(cfg: ArchConfig, *, steps: int, seq_len: int = 256, batch: int 
                  seed: int = 0) -> Trainer:
     """A run of ``steps`` steps: AdamW at ``lr`` with the reference's
     launcher's warmup (``max(steps // 20, 5)``) and cosine over ``steps``,
-    weights drawn from ``seed`` on ``device``."""
+    weights drawn from ``seed`` on ``device``, trained through one
+    :class:`GraphTrainStep` (captured at the first step)."""
     dev = resolve_device(device)
     shape = ShapeConfig("cli", seq_len=seq_len, global_batch=batch, kind="train")
     rt = TrainRuntime(
         microbatches=microbatches,
         adamw=AdamWConfig(lr=lr, warmup_steps=max(steps // 20, 5), total_steps=steps),
     )
-    init_fn, train_step = make_train_fns(cfg, rt)
+    init_fn, _ = make_train_fns(cfg, rt)
     params, opt_state = init_fn(torch.Generator(device=dev).manual_seed(seed), dev)
-    return Trainer(cfg, shape, rt, train_step, params, opt_state, dev, seed)
+    step = GraphTrainStep(cfg, rt, params, opt_state, name=f"train step {cfg.arch_id}")
+    return Trainer(cfg, shape, rt, step, params, opt_state, dev, seed)
 
 
 def make_sharded_trainer(cfg: ArchConfig, *, steps: int, seq_len: int = 256, batch: int = 8,
@@ -111,7 +129,8 @@ def make_sharded_trainer(cfg: ArchConfig, *, steps: int, seq_len: int = 256, bat
                          seed: int = 0) -> Trainer:
     """:func:`make_trainer` on every rank of the running process group:
     the host mesh, the pure-DP policy and ``shard_train_step``, the same
-    weights on every rank, placed by the step's shardings."""
+    weights on every rank, placed by the step's shardings.  The sharded
+    step runs eagerly: no graph is captured over DTensors."""
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import make_host_mesh

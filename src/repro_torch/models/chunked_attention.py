@@ -87,7 +87,9 @@ def _blocked(q, k, v, *, causal, window, scale, block_k, q_start: int = 0):
         args = (qf, k[:, :, k_start : k_start + bk], v[:, :, k_start : k_start + bk], m, l, acc,
                 k_start, s_kv, causal, window, scale, q_start)
         if remat:
-            m, l, acc = checkpoint(_kv_block, *args, use_reentrant=False)
+            # No RNG state to keep (a capture of the train step refuses it).
+            m, l, acc = checkpoint(_kv_block, *args, use_reentrant=False,
+                                   preserve_rng_state=False)
         else:
             m, l, acc = _kv_block(*args)
     safe = torch.where(l > 0, l, 1.0)

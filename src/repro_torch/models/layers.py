@@ -129,10 +129,14 @@ def remat_call(cfg, fn, *args):
     argument, through ``torch.utils.checkpoint``: the backward pass
     recomputes ``fn``'s activations instead of keeping them (the
     reference's ``jax.checkpoint`` of a block).  Recomputing runs the same
-    operations on the same values, so the gradients are the same bits."""
+    operations on the same values, so the gradients are the same bits.
+
+    The blocks draw no random numbers, so no RNG state is stashed for the
+    recompute (``preserve_rng_state=False``): reading the card's generator
+    state is refused while a CUDA graph captures the train step."""
     if cfg.remat and torch.is_grad_enabled() and any(
             isinstance(a, torch.Tensor) and a.requires_grad for a in args):
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
     return fn(*args)
 
 

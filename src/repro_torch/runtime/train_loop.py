@@ -8,6 +8,10 @@ reference's training attention, the plain blocked online-softmax loop
 flash kernel has no backward (nor had the Pallas kernel it replaces) and
 refuses autograd.
 
+:class:`GraphTrainStep` is the port's ``jax.jit(train_step,
+donate_argnums=(0, 1))``: the whole step captured as one CUDA graph that
+updates the parameter and optimizer leaves in place.
+
 :func:`shard_train_step` runs the same step over DTensors on a
 ``DeviceMesh``: parameters, AdamW state and batch laid out by the policy's
 specs, activations constrained by the model's hooks, and the parameter and
@@ -22,6 +26,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.graphs import StaticGraph
 from repro_torch.models import abstract_inputs, abstract_params, build_model
 from repro_torch.optim.adamw import DTYPES, AdamWConfig, AdamWState, make_adamw
 from repro_torch.optim.tree import (
@@ -131,6 +136,96 @@ def make_train_fns(cfg: ArchConfig, rt: TrainRuntime):
         return new_params, new_opt, metrics
 
     return init_fn, train_step
+
+
+class GraphTrainStep:
+    """The train step over donated state: the port's counterpart of
+    ``jax.jit(train_step, donate_argnums=(0, 1))``.
+
+    It owns ``params`` and ``opt_state`` (an :class:`AdamWState`), whose
+    leaves never move.  A call ``step(batch) -> metrics`` copies the batch
+    into static input buffers and runs one
+    :class:`~repro_torch.graphs.StaticGraph` of :func:`make_grad_fn`'s loss
+    and gradients and the AdamW update, which writes the new parameters,
+    moments, master copy and step count into the same leaves (the
+    donation).  It returns clones of the 0-d ``loss``, ``lr`` and
+    ``grad_norm``, and no copy of the state: a caller who keeps a leaf
+    across a call must clone it.
+
+    The graph is captured at the first call, on that call's batch: the
+    capture's eager warm-up is that step's update (the capture itself runs
+    nothing), and every later call is one replay.  On the CPU the same
+    function runs eagerly on the same static buffers, so the in-place
+    contract is the same on both devices.  A failed capture or replay
+    raises, and a batch whose keys, shapes or dtypes differ from the first
+    call's is refused; nothing runs the step eagerly instead on the card.
+    The step equals the functional ``train_step`` of :func:`make_train_fns`
+    bit for bit on the same state and batches where the operations are
+    deterministic (``torch.use_deterministic_algorithms``, which must then
+    be on at the first call too: the mode picks the kernels the graph
+    records).
+    """
+
+    def __init__(self, cfg: ArchConfig, rt: TrainRuntime, params, opt_state: AdamWState, *,
+                 name: str = "train step") -> None:
+        self.params, self.opt_state = params, opt_state
+        self.name = name
+        self.graph: Optional[StaticGraph] = None
+        self._grad_fn = make_grad_fn(cfg, rt)
+        self._update = make_adamw(rt.adamw)[1]
+        self._leaves = tree_leaves((params, opt_state))
+        self._specs: Dict[str, tuple] = {}  # the batch's layout, fixed by the first call
+        # The metrics' own buffers, made by the first (eager) run: the
+        # capture records the copies into them without running them, so
+        # after the capture they hold the warm-up step's values.
+        self._out: Dict[str, torch.Tensor] = {}
+
+    def _step_fn(self, names):
+        """The step over the batch's leaves in ``names``' order (a closure
+        of locals, so that the graph holds no reference to ``self``)."""
+        grad_fn, update, leaves, out = self._grad_fn, self._update, self._leaves, self._out
+        params, opt_state = self.params, self.opt_state
+
+        def step(*batch: torch.Tensor) -> Dict[str, torch.Tensor]:
+            loss, grads = grad_fn(params, dict(zip(names, batch)))
+            new_params, new_opt, metrics = update(grads, opt_state, params)
+            metrics["loss"] = loss
+            torch._foreach_copy_(leaves, tree_leaves((new_params, new_opt)))
+            if not out:
+                out.update({k: torch.empty_like(v) for k, v in metrics.items()})
+            for k, v in metrics.items():
+                out[k].copy_(v)
+            return out
+
+        return step
+
+    @property
+    def captured(self) -> bool:
+        """Whether a CUDA graph was captured (never on the CPU)."""
+        return self.graph is not None and self.graph.graph is not None
+
+    def __call__(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        specs = {n: (tuple(x.shape), x.dtype) for n, x in batch.items()}
+        names = sorted(batch)
+        if self.graph is None:
+            self._specs = specs
+            inputs = [batch[n] for n in names]
+            self.graph = StaticGraph(self._step_fn(names), inputs, name=self.name)
+            if self.captured:  # the capture's warm-up took this batch's update
+                return {k: v.clone() for k, v in self._out.items()}
+            return self.graph(*inputs)
+        if specs != self._specs:
+            bad = min(n for n in set(specs) | set(self._specs)
+                      if specs.get(n) != self._specs.get(n))
+            raise ValueError(f"{self.name}: batch leaf {bad!r} is {specs.get(bad)}; the step "
+                             f"was captured for {self._specs.get(bad)}")
+        return self.graph(*(batch[n] for n in names))
+
+    def load(self, params, opt_state: AdamWState) -> None:
+        """Copy ``(params, opt_state)``, a tree of the same structure (a
+        restored checkpoint), into the step's leaves: the graph reads those
+        buffers, so they are written, never rebound."""
+        torch._foreach_copy_(self._leaves, tree_leaves((params, opt_state)))
 
 
 def microbatched_runtime(rt: TrainRuntime, shape: ShapeConfig, policy: ShardingPolicy):
