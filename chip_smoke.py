@@ -206,14 +206,26 @@ Phases (any failure exits non-zero; there is no CPU path):
 8. the sharded steps on a (1, 1) ``DeviceMesh`` of the card (an NCCL group
    of one rank on a local store, set up and torn down at the phase's
    edges): (a) smollm-360m at phase 7's shape through ``shard_train_step``
-   under the pure-DP and the TP policy, 3 steps each: loss, grad norm,
+   under the pure-DP and the TP policy, 2 steps each: loss, grad norm,
    parameters and AdamW state bit for bit against the functional (eager)
    unsharded step under deterministic algorithms, and the step times
-   (DTensor's host cost over that step);
+   (DTensor's host cost over that step); (a') the same steps as one CUDA
+   graph over the donated DTensor state under each policy (the pure-DP one
+   through the launcher's ``make_sharded_trainer``), 1 capture and 3
+   replays: metrics, parameters, m, v and step bit for bit against (a) and
+   the unsharded step, the leaves never moved; then 6 replays back to back
+   for the replayed step time beside (a)'s and phase 7a's replay, and one
+   replay profiled (busy share, NCCL operations);
    (b) qwen2-0.5b's ``shard_prefill_step`` at prefill_32k (batch cut to 1):
    logits bit for bit, the flash kernel launched once a layer through
-   ``local_map``; (c) ``shard_decode_step`` at decode_32k (batch cut to 8),
-   8 steps: logits and state bit for bit; (d) the dry-run of qwen2-0.5b's
+   ``local_map``; (b') the same prefill as one CUDA graph: a replay's
+   logits bit for bit, one flash launch a layer a replay; (c)
+   ``shard_decode_step`` at decode_32k (batch cut to 8), 8 steps: logits
+   and state bit for bit; (c') the same 8 steps as one CUDA graph over the
+   donated state (1 capture, 7 replays), held the same way, the step time
+   beside (c)'s and the unsharded B = 8 decode graph's; (g) the clip's
+   all-reduce captured on the one-rank NCCL group, replay == eager; (d) the
+   dry-run of qwen2-0.5b's
    train_4k and decode_32k on 256 fake ranks, each in a subprocess started
    at the phase's start: status ok, the roofline terms, the collective
    census, the peak, ``trace_s``, the whole-head re-layouts; (e) the
@@ -3600,7 +3612,7 @@ def train_full_width(torch, smi: str) -> dict:
            "loss_first5": first, "loss_last5": last}
     train_step_parts(torch, trainer, smi)
     out["device_busy"] = profile_train_step(torch, "replayed",
-                                            lambda: trainer.step(TRAIN_STEPS), smi)
+                                            lambda: trainer.step(TRAIN_STEPS), smi)[0]
     eager = eager_train_steps(torch, trainer, smi)
     print(f"[7a] replayed against eager in this call: {median:.3f} against {eager['step_ms']:.3f} "
           f"ms a step ({eager['step_ms'] / median:.2f}x), {tokens / median * 1e3:,.0f} against "
@@ -3639,16 +3651,17 @@ def eager_train_steps(torch, trainer, smi: str) -> dict:
           f"median of the last {TRAIN_TIMED} of {TRAIN_TIMED + 1}) {median:.3f} ms (min "
           f"{ms[0]:.3f}, max {ms[-1]:.3f}); {TRAIN_SEQ_LEN * TRAIN_BATCH / median * 1e3:,.0f} "
           f"tokens/s; peak above the start {peak / 2**30:.3f} GiB; {smi}")
-    busy = profile_train_step(torch, "eager", lambda: step(first + TRAIN_TIMED + 1), smi)
+    busy = profile_train_step(torch, "eager", lambda: step(first + TRAIN_TIMED + 1), smi)[0]
     del state
     return {"step_ms": median, "peak_gib": peak / 2**30, "device_busy": busy}
 
 
-def profile_train_step(torch, label: str, step, smi: str) -> float:
+def profile_train_step(torch, label: str, step, smi: str, phase: str = "7a"):
     """The device's busy share of one train step ``step()`` and its largest
     device operations, from ``torch.profiler`` with device activity only
     (an eager step issues ~16k device operations; host events too would
-    cost tens of seconds to read back) -> the busy share."""
+    cost tens of seconds to read back) -> (the busy share, the device ms,
+    the NCCL operations among the device operations)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -3659,18 +3672,19 @@ def profile_train_step(torch, label: str, step, smi: str) -> float:
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
-        print(f"[7a] {label} train step under the profiler: {wall_ms:.1f} ms wall; device time "
-              f"not measured (the profiler saw no device operations); {smi}")
-        return float("nan")
+        print(f"[{phase}] {label} train step under the profiler: {wall_ms:.1f} ms wall; device "
+              f"time not measured (the profiler saw no device operations); {smi}")
+        return float("nan"), float("nan"), 0
     by_name = Counter()
     for e in kernels:
         by_name[e.name] += e.time_range.elapsed_us() / 1e3
     busy_ms = sum(by_name.values())
-    print(f"[7a] {label} train step under the profiler (device activity): {wall_ms:.1f} ms wall, "
-          f"{len(kernels)} device operations, device time {busy_ms:.1f} ms: busy "
-          f"{busy_ms / wall_ms:.1%}; {smi}; largest: "
+    nccl = sum("nccl" in e.name.lower() for e in kernels)
+    print(f"[{phase}] {label} train step under the profiler (device activity): {wall_ms:.1f} ms "
+          f"wall, {len(kernels)} device operations ({nccl} NCCL), device time {busy_ms:.1f} ms: "
+          f"busy {busy_ms / wall_ms:.1%}; {smi}; largest: "
           + "; ".join(f"{name[:80]} {t:.2f} ms" for name, t in by_name.most_common(5)))
-    return busy_ms / wall_ms
+    return busy_ms / wall_ms, busy_ms, nccl
 
 
 def train_step_parts(torch, trainer, smi: str, repeats: int = 3) -> None:
@@ -4053,9 +4067,17 @@ def phase_training(torch, smi: str, ended=lambda phase: None) -> dict:
 # ---------------------------------------------------------------------------
 # phase 8: the sharded steps on a DeviceMesh of the card, and the dry-run
 # ---------------------------------------------------------------------------
-# (a) smollm-360m's sharded train step at phase 7's shape, 3 steps a policy.
-SHARD_TRAIN_STEPS = 3
-# (c) qwen2-0.5b's decode_32k with the global batch cut from 128 to 8.
+# (a) smollm-360m's sharded train step at phase 7's shape, 2 eager steps a
+# policy; (a') its graph, 4 steps a policy held bit for bit (1 capture, 3
+# replays), then 6 replays back to back, timed as phase 7a's loop is (the
+# replayed step time is the median of the last 5: the first follows the
+# checks' synchronisation, so the host's batch cannot overlap a replay).
+SHARD_TRAIN_STEPS = 2
+SHARD_GRAPH_STEPS = 4
+SHARD_GRAPH_TIMED = 6
+# (c) qwen2-0.5b's decode_32k with the global batch cut from 128 to 8, eager
+# and (c') as a graph (1 capture, 7 replays); the unsharded B = 8 decode
+# graph at that cache replayed SHARD_DECODE_STEPS times beside them.
 SHARD_DECODE_BATCH = 8
 SHARD_DECODE_STEPS = 8
 # (d) the dry-run cells, each in a subprocess of its own on 256 fake ranks.
@@ -4132,95 +4154,224 @@ def _timed_call(torch, fn):
     return out, start.elapsed_time(end)
 
 
-def shard_train_checks(torch, mesh, smi: str, phase7_ms) -> dict:
+def _sharded_steps(torch, step_fn, steps, want_metrics):
+    """``step_fn(step)`` for each step, timed by ``_timed_steps`` -> (the
+    ms of each step, the metrics unequal to ``want_metrics``' in any bit)."""
+    metrics, ms = _timed_steps(torch, step_fn, steps)
+    unequal = sum(int(not torch.equal(m[key], want_metrics[i][key]))
+                  for i, m in enumerate(metrics) for key in ("loss", "grad_norm", "lr"))
+    return ms, unequal
+
+
+def _unequal_leaves(torch, got, want) -> int:
+    return sum(int(not torch.equal(_local(a), b)) for a, b in zip(got, want))
+
+
+def shard_train_checks(torch, mesh, smi: str, phase7: dict) -> dict:
     """(a) smollm-360m at phase 7's shape through ``shard_train_step`` on
-    the (1, 1) mesh under the pure-DP and the TP policy, 3 steps each from
-    the unsharded step's parameters and batches: loss, grad norm,
-    parameters and AdamW state bit for bit against the functional (eager)
-    unsharded step (deterministic algorithms), whose time is the baseline
-    of DTensor's host cost."""
+    the (1, 1) mesh under the pure-DP and the TP policy, SHARD_TRAIN_STEPS
+    eager steps each, then (a') the same steps as one CUDA graph over the
+    donated placed state (``graph_train_step``; the pure-DP one through the
+    launcher's ``make_sharded_trainer``), SHARD_GRAPH_STEPS steps each (one
+    capture, then replays), all from the unsharded step's parameters and
+    batches: loss, grad norm, lr, parameters and AdamW state bit for bit
+    against the functional (eager) unsharded step (deterministic
+    algorithms), and so against each other; the step times beside the
+    unsharded step's (DTensor's host cost) and phase 7a's replay."""
     from repro_torch.configs import ARCHS
     from repro_torch.launch.train import make_trainer
     from repro_torch.optim.tree import tree_leaves
     from repro_torch.runtime.sharding import make_policy
     from repro_torch.runtime.train_loop import make_train_fns, shard_train_step
 
+    # Deterministic algorithms pick the kernels; the NaN fill of every new
+    # tensor that comes with them (~8k device operations and ~13 ms a
+    # replayed step) changes no value that a step computes, and is off, so
+    # that the replays compare with phase 7a's.
+    fill = torch.utils.deterministic.fill_uninitialized_memory
     torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
     try:
         trainer = make_trainer(ARCHS[TRAIN_ARCH], steps=TRAIN_STEPS, seq_len=TRAIN_SEQ_LEN,
                                batch=TRAIN_BATCH, device="cuda")
         _, train_step = make_train_fns(trainer.cfg, trainer.rt)
         p0, o0 = _clone_tree(trainer.params), _clone_tree(trainer.opt_state)
         p1, o1 = _clone_tree(p0), _clone_tree(o0)
-        ref, ref_ms = [], []
-        for step in range(SHARD_TRAIN_STEPS):
+        ref, ref_ms, want_eager = [], [], None
+        for step in range(SHARD_GRAPH_STEPS):
             (p1, o1, m), ms = _timed_call(torch, lambda: train_step(p1, o1, trainer.batch(step)))
             ref.append(m)
             ref_ms.append(ms)
+            if step + 1 == SHARD_TRAIN_STEPS:
+                want_eager = _clone_tree(tree_leaves((p1, o1)))
         want = tree_leaves((p1, o1))
-        out = {"unsharded_ms": _median(ref_ms)}
+        n_el = sum(t.numel() for t in want)
+        out = {"unsharded_ms": _median(ref_ms[1:])}
         for layout in ("dp", "tp"):
             policy = make_policy(mesh, pure_dp=layout == "dp")
+            label = "pure-DP" if layout == "dp" else "TP"
             fn, _ = shard_train_step(trainer.cfg, trainer.shape, policy, trainer.rt)
             params, opt = fn.place(_clone_tree(p0), _clone_tree(o0))
-            ms_all, unequal_metrics = [], 0
-            for step in range(SHARD_TRAIN_STEPS):
-                (params, opt, m), ms = _timed_call(
-                    torch, lambda: fn(params, opt, trainer.batch(step)))
-                ms_all.append(ms)
-                for key in ("loss", "grad_norm", "lr"):
-                    unequal_metrics += int(not torch.equal(m[key], ref[step][key]))
-            got = [_local(t) for t in tree_leaves((params, opt))]
-            bad = sum(int(not torch.equal(a, b)) for a, b in zip(got, want))
-            n_el = sum(t.numel() for t in want)
-            print(f"[8a] {TRAIN_ARCH} seq {TRAIN_SEQ_LEN} x batch {TRAIN_BATCH}, "
-                  f"{'pure-DP' if layout == 'dp' else 'TP'} policy on the (1, 1) mesh: "
-                  f"{SHARD_TRAIN_STEPS} steps; metrics unequal {unequal_metrics}, leaves of "
-                  f"params + AdamW state unequal {bad} of {len(want)} ({n_el:,} elements); "
-                  f"step {_median(ms_all):.1f} ms (CUDA events, median of "
-                  f"{SHARD_TRAIN_STEPS}) against the unsharded eager step's "
-                  f"{out['unsharded_ms']:.1f} ms here and phase 7a's {phase7_ms:.1f} ms; {smi}")
+
+            def eager(step):
+                return fn(params, opt, trainer.batch(step))[2]
+
+            ms_all, unequal_metrics = _sharded_steps(torch, eager, range(SHARD_TRAIN_STEPS), ref)
+            bad = _unequal_leaves(torch, tree_leaves((params, opt)), want_eager)
+            # The first step fills DTensor's caches of sharding propagation.
+            ms_all = ms_all[1:]
+            print(f"[8a] {TRAIN_ARCH} seq {TRAIN_SEQ_LEN} x batch {TRAIN_BATCH}, {label} policy "
+                  f"on the (1, 1) mesh, eager: {SHARD_TRAIN_STEPS} steps; metrics unequal "
+                  f"{unequal_metrics}, leaves of params + AdamW state unequal {bad} of "
+                  f"{len(want)} ({n_el:,} elements); step {_median(ms_all):.1f} ms (CUDA events, "
+                  f"median of the last {len(ms_all)}) against the unsharded eager step's "
+                  f"{out['unsharded_ms']:.1f} ms here and phase 7a's {phase7['eager_step_ms']:.1f} "
+                  f"ms; {smi}")
             if bad or unequal_metrics:
                 fail(f"8a: the sharded train step ({layout}) differs from the unsharded one: "
                      f"{bad} leaves, {unequal_metrics} metrics")
             out[f"{layout}_ms"] = _median(ms_all)
-            del params, opt, fn
+            # The eager step's state is freed before the capture.
+            del params, opt, fn, eager
+            out[f"graph_{layout}_ms"] = graph_train_checks(
+                torch, trainer, layout, mesh, p0, o0, ref, want_eager, want, out, phase7, smi)
     finally:
         torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
     host_ms = max(out["dp_ms"], out["tp_ms"]) - out["unsharded_ms"]
     print(f"[8a] DTensor's host cost: {out['dp_ms'] - out['unsharded_ms']:.1f} ms (pure DP) and "
           f"{out['tp_ms'] - out['unsharded_ms']:.1f} ms (TP) a step over the unsharded "
-          f"{out['unsharded_ms']:.1f} ms; {smi}")
+          f"{out['unsharded_ms']:.1f} ms; under the graph {out['graph_dp_ms']:.3f} / "
+          f"{out['graph_tp_ms']:.3f} ms a replayed step against phase 7a's unsharded replay "
+          f"{phase7['step_ms']:.3f} ms; {smi}")
     out["host_cost_ms"] = host_ms
-    del trainer, p0, o0, p1, o1, ref, want
+    del trainer, p0, o0, p1, o1, ref, want, want_eager
     return out
+
+
+def graph_train_checks(torch, trainer, layout, mesh, p0, o0, ref, want_eager, want, out,
+                       phase7, smi) -> float:
+    """(a') one policy's graph step: SHARD_GRAPH_STEPS steps from (p0, o0)
+    on ``trainer``'s batches, 1 capture and the rest replays, held bit for
+    bit as (a) is; the pure-DP one is the launcher's sharded trainer
+    (``make_sharded_trainer`` on a host mesh of the group, its state set by
+    ``load``), whose one replayed step is also profiled -> the median ms
+    of the replays."""
+    import gc
+
+    from repro_torch.kernels import build
+    from repro_torch.launch.train import make_sharded_trainer
+    from repro_torch.optim.tree import tree_leaves
+    from repro_torch.runtime.sharding import make_policy
+    from repro_torch.runtime.train_loop import GraphShardedStep, graph_train_step, shard_train_step
+
+    label = "pure-DP" if layout == "dp" else "TP"
+    if layout == "dp":
+        launcher = make_sharded_trainer(trainer.cfg, steps=TRAIN_STEPS, seq_len=TRAIN_SEQ_LEN,
+                                        batch=TRAIN_BATCH, device="cuda")
+        step = launcher.train_step
+        if not isinstance(step, GraphShardedStep):
+            fail(f"8a': the launcher's sharded trainer steps through {type(step).__name__}")
+        step.load(p0, o0)
+        run = launcher.step
+        via = "the launcher's make_sharded_trainer"
+    else:
+        fn, _ = shard_train_step(trainer.cfg, trainer.shape, make_policy(mesh), trainer.rt)
+        step = graph_train_step(fn, _clone_tree(p0), _clone_tree(o0),
+                                name=f"train step sharded tp {TRAIN_ARCH}")
+        launcher = None
+        via = "graph_train_step"
+
+        def run(i):
+            return step(trainer.batch(i))
+
+    replays = build.counter(f"graph_replays {step.name}")
+    replays.reset()
+    leaves = tree_leaves(step.args)
+    ptrs = [_local(t).data_ptr() for t in leaves]
+    ms_all, unequal_metrics = _sharded_steps(torch, run, range(SHARD_TRAIN_STEPS), ref)
+    bad_eager = _unequal_leaves(torch, leaves, want_eager)
+    ms_rest, unequal_rest = _sharded_steps(torch, run, range(SHARD_TRAIN_STEPS, SHARD_GRAPH_STEPS),
+                                           ref[SHARD_TRAIN_STEPS:])
+    ms_all += ms_rest
+    unequal_metrics += unequal_rest
+    bad = _unequal_leaves(torch, leaves, want)
+    moved = sum(int(_local(t).data_ptr() != p) for t, p in zip(leaves, ptrs))
+    held = replays.value
+    end = SHARD_GRAPH_STEPS + SHARD_GRAPH_TIMED
+    _, ms_timed = _timed_steps(torch, run, range(SHARD_GRAPH_STEPS, end))
+    ms_timed = sorted(ms_timed[1:])
+    median = _median(ms_timed)
+    print(f"[8a'] {TRAIN_ARCH}, {label} policy on the (1, 1) mesh as one CUDA graph over donated "
+          f"DTensor state ({via}): "
+          f"captures {int(step.captured)}, replays {held} in {SHARD_GRAPH_STEPS} steps; "
+          f"metrics unequal {unequal_metrics}; leaves unequal after step {SHARD_TRAIN_STEPS} "
+          f"(= the eager sharded step's state) {bad_eager}, after step {SHARD_GRAPH_STEPS} "
+          f"{bad} of {len(want)}; leaves moved {moved}; the first step with its capture "
+          f"{ms_all[0]:.1f} ms, the checked replays {[round(x, 3) for x in ms_all[1:]]} ms; "
+          f"replayed step {median:.3f} ms (CUDA events, median of the last "
+          f"{len(ms_timed)} of {SHARD_GRAPH_TIMED} replays back to back; min {ms_timed[0]:.3f}, "
+          f"max {ms_timed[-1]:.3f}) against the eager sharded {out[layout + '_ms']:.1f} ms and "
+          f"phase 7a's unsharded replay {phase7['step_ms']:.3f} ms; {smi}")
+    if not step.captured or held != SHARD_GRAPH_STEPS - 1:
+        fail(f"8a': {label}: captured {step.captured}, {held} replays for "
+             f"{SHARD_GRAPH_STEPS} steps")
+    if bad or bad_eager or unequal_metrics or moved:
+        fail(f"8a': the {label} graph step differs: {bad_eager} / {bad} leaves, "
+             f"{unequal_metrics} metrics, {moved} leaves moved")
+    if launcher is not None:
+        busy, device_ms, nccl = profile_train_step(
+            torch, "sharded replayed", lambda: run(end), smi, phase="8a'")
+        print(f"[8a'] device time over the replayed step: {device_ms / median:.1%} across the "
+              f"loop ({device_ms:.1f} / {median:.3f} ms), {busy:.1%} for the lone profiled step; "
+              f"NCCL operations in a replay: {nccl} (a one-rank mesh leaves every placement "
+              f"trivial); {smi}")
+        out.update(graph_dp_busy=busy, graph_dp_loop_busy=device_ms / median)
+    del step, launcher, run, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    return median
 
 
 def shard_serve_checks(torch, mesh, smi: str) -> dict:
     """(b) qwen2-0.5b's ``shard_prefill_step`` at prefill_32k (batch cut
     to 1) on the (1, 1) mesh: the logits bit for bit against the unsharded
-    prefill, the flash kernel launched once a layer through ``local_map``.
-    (c) ``shard_decode_step`` at decode_32k (batch cut to 8), 8 steps from
-    an empty cache: logits and state bit for bit against
-    ``lm.decode_step``; the tied head takes ``matmul_f32``'s card route on
-    DTensors."""
+    prefill, the flash kernel launched once a layer through ``local_map``;
+    (b') the same step as one CUDA graph over the placed parameters
+    (``graph_prefill_step``): a replay's logits bit for bit, one flash
+    launch a layer a replay.  (c) ``shard_decode_step`` at decode_32k
+    (batch cut to 8), 8 steps from an empty cache: logits and state bit
+    for bit against ``lm.decode_step``; the tied head takes
+    ``matmul_f32``'s card route on DTensors; (c') the same 8 steps as one
+    graph over the donated placed state (``graph_decode_step``), held the
+    same way, the state written in place, its step time beside the eager
+    one's and the unsharded B = 8 decode graph's at that cache."""
+    import gc
+
     from repro_torch.configs import SHAPES
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.models import build_model, lm
     from repro_torch.optim.tree import tree_leaves
-    from repro_torch.runtime.serve_loop import shard_decode_step, shard_prefill_step
+    from repro_torch.runtime.serve_loop import (
+        DecodeGraph,
+        graph_decode_step,
+        graph_prefill_step,
+        shard_decode_step,
+        shard_prefill_step,
+    )
     from repro_torch.runtime.sharding import choose_policy, place_tree
 
     cfg = _lm_config()
-    params = build_model(cfg).init(torch.Generator().manual_seed(0), "cuda")
+    bundle = build_model(cfg)
+    params = bundle.init(torch.Generator().manual_seed(0), "cuda")
     s = _prefill_len()
     tokens = torch.randint(0, cfg.vocab, (1, s), generator=torch.Generator().manual_seed(5)).cuda()
     shape = SHAPES["prefill_32k"]
     policy = choose_policy(cfg, shape, mesh)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    want = build_model(cfg).prefill(params, {"tokens": tokens})
+    want = bundle.prefill(params, {"tokens": tokens})
     torch.cuda.synchronize()
     plain_wall = time.perf_counter() - t0
     fn, _ = shard_prefill_step(cfg, shape, policy)
@@ -4242,8 +4393,37 @@ def shard_serve_checks(torch, mesh, smi: str) -> dict:
           f"{smi}")
     if not same or launches != cfg.n_layers or fp32:
         fail(f"8b: sharded prefill equal={same}, launches {launches}/{fp32}")
-    del placed, got, want
+    del placed, got
     out = {"prefill_s": wall, "prefill_unsharded_s": plain_wall}
+
+    gp = graph_prefill_step(fn, params, name=f"prefill sharded {cfg.arch_id}")
+    first = gp({"tokens": tokens})
+    same_first = torch.equal(_local(first), want)
+    del first
+    torch.cuda.synchronize()
+    build.reset_counters()
+    t0 = time.perf_counter()
+    got = gp({"tokens": tokens})
+    torch.cuda.synchronize()
+    gwall = time.perf_counter() - t0
+    launches, fp32 = fa.LAUNCHES["tensor_core"].value, fa.LAUNCHES["cuda_core"].value
+    replays = build.counter(f"graph_replays {gp.name}").value
+    same = torch.equal(_local(got), want)
+    print(f"[8b'] {cfg.arch_id} graph_prefill_step, the same prompt as one CUDA graph over the "
+          f"placed parameters: captured {gp.captured}, one replay {gwall:.3f} s wall against the "
+          f"eager sharded {wall:.3f} s and the unsharded {plain_wall:.3f} s; logits equal the "
+          f"unsharded prefill's bit for bit: capture's warm-up {same_first}, replay {same}; flash "
+          f"launches in the replay: tensor-core route {launches} (want {cfg.n_layers}), fp32 "
+          f"route {fp32}; {smi}")
+    if not (gp.captured and same_first and same) or replays != 1:
+        fail(f"8b': graphed prefill captured={gp.captured} equal={same_first}/{same}, "
+             f"{replays} replays")
+    if launches != cfg.n_layers or fp32:
+        fail(f"8b': {launches}/{fp32} flash launches in a replay, want {cfg.n_layers}/0")
+    out["prefill_graph_s"] = gwall
+    del gp, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
 
     dshape = replace(SHAPES["decode_32k"], global_batch=SHARD_DECODE_BATCH)
     dpolicy = choose_policy(cfg, dshape, mesh)
@@ -4252,14 +4432,16 @@ def shard_serve_checks(torch, mesh, smi: str) -> dict:
     ref = lm.init_decode_state(cfg, SHARD_DECODE_BATCH, dshape.seq_len, "cuda")
     state = lm.init_decode_state(cfg, SHARD_DECODE_BATCH, dshape.seq_len, "cuda")
     gen = torch.Generator().manual_seed(9)
-    unequal, ms_all, ref_ms = 0, [], []
-    for _ in range(SHARD_DECODE_STEPS):
-        nt = torch.randint(0, cfg.vocab, (SHARD_DECODE_BATCH, 1), generator=gen).cuda()
+    steps = [torch.randint(0, cfg.vocab, (SHARD_DECODE_BATCH, 1), generator=gen).cuda()
+             for _ in range(SHARD_DECODE_STEPS)]
+    unequal, ms_all, ref_ms, wants = 0, [], [], []
+    for nt in steps:
         (want, ref), ms_ref = _timed_call(torch, lambda: lm.decode_step(params, cfg, ref, nt))
         (got, state), ms = _timed_call(torch, lambda: dfn(dparams, state, {"tokens": nt}))
         unequal += int(not torch.equal(_local(got), want))
         ms_all.append(ms)
         ref_ms.append(ms_ref)
+        wants.append(want)
     bad = sum(int(not torch.equal(_local(a), b))
               for a, b in zip(tree_leaves(state), tree_leaves(ref)))
     print(f"[8c] {cfg.arch_id} shard_decode_step, decode_32k with the global batch cut from "
@@ -4270,8 +4452,77 @@ def shard_serve_checks(torch, mesh, smi: str) -> dict:
     if unequal or bad:
         fail(f"8c: the sharded decode differs: {unequal} logits, {bad} state leaves")
     out.update(decode_ms=_median(ms_all), decode_unsharded_ms=_median(ref_ms))
-    del params, dparams, ref, state
+    del dparams, state, got
+
+    gd = graph_decode_step(dfn, params, lm.init_decode_state(
+        cfg, SHARD_DECODE_BATCH, dshape.seq_len, "cuda"), name=f"decode sharded {cfg.arch_id}")
+    held = tree_leaves(gd.args[1])
+    ptrs = [_local(t).data_ptr() for t in held]
+    got_all, gms = _timed_steps(torch, lambda i: gd({"tokens": steps[i]}), range(len(steps)))
+    unequal = sum(int(not torch.equal(_local(g), w)) for g, w in zip(got_all, wants))
+    bad = _unequal_leaves(torch, held, tree_leaves(ref))
+    moved = sum(int(_local(t).data_ptr() != p) for t, p in zip(held, ptrs))
+    replays = build.counter(f"graph_replays {gd.name}").value
+    del gd, held, got_all
+    gc.collect()
+    torch.cuda.empty_cache()
+    dg = DecodeGraph(bundle, params, SHARD_DECODE_BATCH, dshape.seq_len,
+                     name=f"decode B={SHARD_DECODE_BATCH} {dshape.seq_len}")
+    _, ums = _timed_steps(torch, lambda i: dg(steps[i]), range(len(steps)))
+    del dg
+    print(f"[8c'] {cfg.arch_id} graph_decode_step, the same {SHARD_DECODE_STEPS} steps as one "
+          f"CUDA graph over the donated placed state: replays {replays}; logits unequal in "
+          f"{unequal} steps, state leaves unequal {bad} of {len(tree_leaves(ref))}, leaves moved "
+          f"{moved}; replayed step {_median(gms[1:]):.3f} ms (CUDA events, median of "
+          f"{len(gms) - 1}; the first with its capture {gms[0]:.1f} ms) against the eager "
+          f"sharded {out['decode_ms']:.2f} ms and the unsharded B = {SHARD_DECODE_BATCH} decode "
+          f"graph's replay at the same cache {_median(ums[1:]):.3f} ms; {smi}")
+    if unequal or bad or moved or replays != SHARD_DECODE_STEPS - 1:
+        fail(f"8c': the graphed sharded decode differs: {unequal} logits, {bad} state leaves, "
+             f"{moved} moved, {replays} replays")
+    out.update(decode_graph_ms=_median(gms[1:]), decode_unsharded_graph_ms=_median(ums[1:]))
+    del params, ref, wants
     return out
+
+
+def collective_capture_check(torch, mesh, smi: str) -> None:
+    """(g) The clip's all-reduce (``funcol.all_reduce`` over the mesh
+    flattened to one dim, as ``optim.adamw`` issues it on a mesh of more
+    ranks) captured in a ``StaticGraph`` on the group of one rank: the
+    capture goes through ProcessGroupNCCL (its work, events and watchdog)
+    and the replay equals the eager result.  The only collective the card
+    can run under capture: the (1, 1) mesh's steps hold none, and on one
+    rank NCCL's all-reduce itself is a device copy (the replay's device
+    operations are printed)."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.graphs import StaticGraph
+    from repro_torch.optim.adamw import _whole_mesh
+
+    whole = mesh._flatten()
+    if _whole_mesh(mesh) is not whole:
+        fail("8g: the clip's flattened mesh is not the cached one")
+    x = torch.randn(4096, generator=torch.Generator().manual_seed(3)).cuda()
+
+    def total(t):
+        return funcol.wait_tensor(funcol.all_reduce(t * 2.0, "sum", whole))
+
+    want = total(x)
+    g = StaticGraph(total, [x], name="all-reduce")
+    y = x + 1.0
+    g(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = g(y)
+        torch.cuda.synchronize()
+    ops = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    same = torch.equal(got, total(y)) and torch.equal(g(x), want)
+    print(f"[8g] funcol.all_reduce on the one-rank NCCL group under capture: captured "
+          f"{g.graph is not None}, replay equals eager bit for bit: {same}; the replay's device "
+          f"operations: {[name[:60] for name in ops]}; {smi}")
+    if g.graph is None or not same:
+        fail(f"8g: the captured all-reduce: captured {g.graph is not None}, equal {same}")
 
 
 def dryrun_report(torch, results: dict, phase7: dict, smi: str) -> None:
@@ -4372,7 +4623,8 @@ def shard_refusals(torch, mesh) -> None:
 def phase_sharded_steps(torch, smi: str, phase7: dict, ended=lambda phase: None) -> None:
     """8: the dry-runs start on the host; the NCCL group of one rank (a
     local store) is set up and torn down at the phase's edges around
-    (a)-(c) and (f); then the dry-runs' results, (d) and (e)."""
+    (a)-(c) with their graphs, (g) and (f); then the dry-runs' results, (d)
+    and (e)."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -4382,10 +4634,11 @@ def phase_sharded_steps(torch, smi: str, phase7: dict, ended=lambda phase: None)
                                 world_size=1)
         try:
             mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
-            shard_train_checks(torch, mesh, smi, phase7["eager_step_ms"])
-            ended("8a sharded train")
+            shard_train_checks(torch, mesh, smi, phase7)
+            ended("8a sharded train, eager and graph")
             shard_serve_checks(torch, mesh, smi)
-            ended("8b-c sharded prefill and decode")
+            ended("8b-c sharded prefill and decode, eager and graph")
+            collective_capture_check(torch, mesh, smi)
             shard_refusals(torch, mesh)
         finally:
             dist.destroy_process_group()
@@ -4395,7 +4648,7 @@ def phase_sharded_steps(torch, smi: str, phase7: dict, ended=lambda phase: None)
             if proc.poll() is None:
                 proc.kill()
     dryrun_report(torch, results, phase7, smi)
-    ended("8d-f dry-run, estimates, refusals")
+    ended("8d-g dry-run, estimates, refusals, captured all-reduce")
 
 
 def main() -> None:

@@ -14,7 +14,9 @@ donate_argnums=(0, 1))``; eager on the CPU).  Launched with a world size above 1
 (``torchrun``), every process joins the process group (NCCL on cards, gloo
 on the CPU), builds the host mesh ``(world_size, 1)``, and trains through
 ``shard_train_step`` under the pure-DP policy, as the reference's launcher
-does; rank 0 prints and writes the checkpoints.
+does, replayed as one CUDA graph a step over the donated DTensor state
+(``train_loop.graph_train_step``, the reference's pjit'd step; eager on
+gloo); rank 0 prints and writes the checkpoints.
 
     PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu --steps 20
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
@@ -44,7 +46,9 @@ from repro_torch.optim.tree import tree_leaves, tree_unflatten
 from repro_torch.runtime.train_loop import (
     GraphTrainStep,
     TrainRuntime,
+    graph_train_step,
     make_train_fns,
+    microbatched_runtime,
     shard_train_step,
 )
 
@@ -53,10 +57,11 @@ from repro_torch.runtime.train_loop import (
 class Trainer:
     """One training run's model, optimizer state and data stream.
 
-    ``train_step`` is a :class:`GraphTrainStep` in one process (it owns
-    ``params`` and ``opt_state`` and writes them in place), or the sharded
-    step.  ``params`` and ``opt_state`` are the live leaves that the next
-    step overwrites: a caller who keeps them must clone them."""
+    ``train_step`` is a :class:`GraphTrainStep` in one process, or a
+    ``train_loop.GraphShardedStep`` over DTensors (``sharded``); either owns
+    ``params`` and ``opt_state`` and writes them in place.  ``params`` and
+    ``opt_state`` are the live leaves that the next step overwrites: a
+    caller who keeps them must clone them."""
 
     cfg: ArchConfig
     shape: ShapeConfig
@@ -67,8 +72,8 @@ class Trainer:
     device: torch.device
     seed: int = 0
     rank: int = 0
-    # The sharded step (a world size above 1): places plain trees.
-    sharded: Any = None
+    # Whether the leaves are DTensors (a world size above 1).
+    sharded: bool = False
 
     def batch(self, step: int) -> Dict[str, torch.Tensor]:
         """Step ``step``'s batch (a pure function of (seed, step)), in the
@@ -78,18 +83,14 @@ class Trainer:
 
     def step(self, step: int) -> Dict[str, torch.Tensor]:
         """One update on step ``step``'s batch -> its metrics (0-d tensors)."""
-        if self.sharded is None:
-            return self.train_step(self.batch(step))
-        self.params, self.opt_state, metrics = self.train_step(
-            self.params, self.opt_state, self.batch(step))
-        return metrics
+        return self.train_step(self.batch(step))
 
     @property
     def state(self):
         """``(params, opt_state)``, whole (a sharded run gathers its shards
         on every rank: call it on all of them); in one process the live
         leaves."""
-        if self.sharded is None:
+        if not self.sharded:
             return (self.params, self.opt_state)
         leaves = tree_leaves((self.params, self.opt_state))
         return tree_unflatten((self.params, self.opt_state), [t.full_tensor() for t in leaves])
@@ -98,10 +99,7 @@ class Trainer:
         """Load ``(params, opt_state)`` from ``path`` -> the step it was
         saved at."""
         (params, opt_state), step, _ = restore(path, self.state, device=self.device)
-        if self.sharded is None:
-            self.train_step.load(params, opt_state)
-        else:
-            self.params, self.opt_state = self.sharded.place(params, opt_state)
+        self.train_step.load(params, opt_state)
         return step
 
 
@@ -129,8 +127,9 @@ def make_sharded_trainer(cfg: ArchConfig, *, steps: int, seq_len: int = 256, bat
                          seed: int = 0) -> Trainer:
     """:func:`make_trainer` on every rank of the running process group:
     the host mesh, the pure-DP policy and ``shard_train_step``, the same
-    weights on every rank, placed by the step's shardings.  The sharded
-    step runs eagerly: no graph is captured over DTensors."""
+    weights on every rank, placed by the step's shardings and donated to
+    one ``train_loop.GraphShardedStep`` (captured at the first step on the card,
+    replayed at every later one; eager on gloo)."""
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import make_host_mesh
@@ -139,10 +138,13 @@ def make_sharded_trainer(cfg: ArchConfig, *, steps: int, seq_len: int = 256, bat
     plain = make_trainer(cfg, steps=steps, seq_len=seq_len, batch=batch,
                          microbatches=microbatches, lr=lr, device=device, seed=seed)
     policy = make_policy(make_host_mesh(plain.device.type), pure_dp=True)
-    fn, _ = shard_train_step(cfg, plain.shape, policy, plain.rt)
-    params, opt_state = fn.place(plain.params, plain.opt_state)
-    return Trainer(cfg, plain.shape, plain.rt, fn, params, opt_state, plain.device, seed,
-                   rank=dist.get_rank(), sharded=fn)
+    rt = microbatched_runtime(plain.rt, plain.shape, policy)
+    fn, _ = shard_train_step(cfg, plain.shape, policy, rt)
+    step = graph_train_step(fn, plain.params, plain.opt_state,
+                            name=f"train step sharded {cfg.arch_id}")
+    params, opt_state = step.args
+    return Trainer(cfg, plain.shape, rt, step, params, opt_state, plain.device, seed,
+                   rank=dist.get_rank(), sharded=True)
 
 
 def run(trainer: Trainer, start_step: int, steps: int, *, checkpoint: str = "",

@@ -21,7 +21,10 @@ chunk length), and the speculative verify graphs (k + 1 decode steps each).
 
 The sharded per-cell entry points (:func:`shard_prefill_step`,
 :func:`shard_decode_step`) run the model's prefill and decode step over
-DTensors on a ``DeviceMesh``, laid out by the sharding policy.
+DTensors on a ``DeviceMesh``, laid out by the sharding policy;
+:func:`graph_prefill_step` and :func:`graph_decode_step` replay them as one
+CUDA graph each over placed state (the decode state donated), the
+counterparts of the reference's jitted prefill and decode step.
 """
 from __future__ import annotations
 
@@ -71,7 +74,7 @@ from .sharding import (
     decode_state_shardings,
     params_shardings,
 )
-from .train_loop import ShardedStep
+from .train_loop import GraphShardedStep, ShardedStep
 
 MODES = ("continuous", "generation", "paged", "speculative")
 
@@ -794,3 +797,19 @@ def shard_decode_step(cfg: ArchConfig, shape: ShapeConfig, policy: ShardingPolic
 
     return (ShardedStep(step, policy, (p_sh, s_sh, t_sh), constrain=False),
             (params_abs, state_abs, tokens_abs))
+
+
+def graph_prefill_step(fn: ShardedStep, params, *, name: str) -> GraphShardedStep:
+    """:func:`shard_prefill_step`'s step as one graph over placed
+    parameters, nothing donated: ``step({"tokens": ...})`` -> the
+    last-position logits as a DTensor (a clone)."""
+    return GraphShardedStep(fn, params, name=name)
+
+
+def graph_decode_step(fn: ShardedStep, params, state: DecodeState, *,
+                      name: str) -> GraphShardedStep:
+    """:func:`shard_decode_step`'s step as one graph over placed parameters
+    and a donated decode state (``donate_argnums=(1,)``): ``step({"tokens":
+    (B, 1)})`` -> the logits as a DTensor (a clone), the new state written
+    into ``step.args[1]``'s leaves in place."""
+    return GraphShardedStep(fn, params, state, donate={1: 1}, output=0, name=name)

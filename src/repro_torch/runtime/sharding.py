@@ -611,11 +611,11 @@ def rowwise(fn, *args, batched: Sequence[bool]):
                      device_mesh=mesh)(*ins)
 
 
-def _shard_start(size: int, mesh, placements, dim: int) -> int:
-    """Where this rank's part of tensor dim ``dim`` (of ``size``) starts
-    under ``placements`` on ``mesh``: the mesh dims that shard it split it
-    in mesh order, each into ``torch.chunk``'s pieces (in plain integers; a
-    fake mesh's rank table cannot be read)."""
+def _shard_range(size: int, mesh, placements, dim: int) -> Tuple[int, int]:
+    """``(start, length)`` of this rank's part of tensor dim ``dim`` (of
+    ``size``) under ``placements`` on ``mesh``: the mesh dims that shard it
+    split it in mesh order, each into ``torch.chunk``'s pieces (in plain
+    integers; a fake mesh's rank table cannot be read)."""
     coord = mesh.get_coordinate()
     start = 0
     for n, c, p in zip(mesh.shape, coord, placements):
@@ -623,7 +623,18 @@ def _shard_start(size: int, mesh, placements, dim: int) -> int:
             piece = -(-size // n)
             start += min(c * piece, size)
             size = max(0, min(piece, size - c * piece))
-    return start
+    return start, size
+
+
+def local_part(x: torch.Tensor, mesh, placements) -> torch.Tensor:
+    """This rank's part of the whole tensor ``x`` laid out by
+    ``placements`` on ``mesh``, as ``distribute_tensor`` would give it (a
+    view of ``x``; every rank passes the same ``x``)."""
+    for dim in range(x.ndim):
+        start, n = _shard_range(x.shape[dim], mesh, placements, dim)
+        if n != x.shape[dim]:
+            x = x.narrow(dim, start, n)
+    return x
 
 
 def local_attention(fn, q, k, v):
@@ -652,7 +663,7 @@ def local_attention(fn, q, k, v):
     q_pl = [keep(p) for p in q.placements]
     kv_pl = [Replicate() if p.is_shard(2) else p for p in q_pl]
     kv_grad = [Partial() if p.is_shard(2) else p for p in q_pl]
-    start = _shard_start(q.shape[2], mesh, q_pl, 2)
+    start = _shard_range(q.shape[2], mesh, q_pl, 2)[0]
 
     def local(ql, kl, vl):
         return fn(ql, kl, vl, q_start=start)
@@ -751,7 +762,7 @@ def write_cache_slot(cache, slot, value, rows=None) -> None:
     if not any(p.is_shard(2) for p in cache.placements):
         lk[rows, :, ls] = lv
         return
-    start = _shard_start(cache.shape[2], mesh, cache.placements, 2)
+    start = _shard_range(cache.shape[2], mesh, cache.placements, 2)[0]
     w_local = lk.shape[2]
     inside = (ls >= start) & (ls < start + w_local)
     li = torch.clamp(ls - start, 0, max(w_local - 1, 0))

@@ -16,6 +16,10 @@ updates the parameter and optimizer leaves in place.
 ``DeviceMesh``: parameters, AdamW state and batch laid out by the policy's
 specs, activations constrained by the model's hooks, and the parameter and
 optimizer leaves updated in place (the reference donates them).
+:class:`GraphShardedStep` replays such a step as one CUDA graph over the
+placed, donated state (:func:`graph_train_step`; the prefill and decode
+steps in ``serve_loop``), the port's pjit'd per-cell entry points: DTensor
+dispatches only while the graph is captured.
 """
 from __future__ import annotations
 
@@ -43,6 +47,7 @@ from .sharding import (
     ShardingPolicy,
     activation_sharding,
     batch_shardings,
+    local_part,
     params_shardings,
     place_tree,
     sharded_region,
@@ -205,7 +210,7 @@ class GraphTrainStep:
         return self.graph is not None and self.graph.graph is not None
 
     def __call__(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        specs = {n: (tuple(x.shape), x.dtype) for n, x in batch.items()}
+        specs = _batch_layout(batch)
         names = sorted(batch)
         if self.graph is None:
             self._specs = specs
@@ -214,11 +219,7 @@ class GraphTrainStep:
             if self.captured:  # the capture's warm-up took this batch's update
                 return {k: v.clone() for k, v in self._out.items()}
             return self.graph(*inputs)
-        if specs != self._specs:
-            bad = min(n for n in set(specs) | set(self._specs)
-                      if specs.get(n) != self._specs.get(n))
-            raise ValueError(f"{self.name}: batch leaf {bad!r} is {specs.get(bad)}; the step "
-                             f"was captured for {self._specs.get(bad)}")
+        _check_layout(self.name, specs, self._specs)
         return self.graph(*(batch[n] for n in names))
 
     def load(self, params, opt_state: AdamWState) -> None:
@@ -226,6 +227,19 @@ class GraphTrainStep:
         restored checkpoint), into the step's leaves: the graph reads those
         buffers, so they are written, never rebound."""
         torch._foreach_copy_(self._leaves, tree_leaves((params, opt_state)))
+
+
+def _batch_layout(batch: Dict[str, torch.Tensor]) -> Dict[str, tuple]:
+    return {n: (tuple(x.shape), x.dtype) for n, x in batch.items()}
+
+
+def _check_layout(name: str, specs: Dict[str, tuple], want: Dict[str, tuple]) -> None:
+    """Refuse a batch whose leaves differ from the captured one's, naming
+    the first leaf that differs."""
+    if specs != want:
+        bad = min(n for n in set(specs) | set(want) if specs.get(n) != want.get(n))
+        raise ValueError(f"{name}: batch leaf {bad!r} is {specs.get(bad)}; the step "
+                         f"was captured for {want.get(bad)}")
 
 
 def microbatched_runtime(rt: TrainRuntime, shape: ShapeConfig, policy: ShardingPolicy):
@@ -259,6 +273,178 @@ class ShardedStep:
         args = self.place(*args)
         with sharded_region(), activation_sharding(self.policy if self.constrain else None):
             return self.fn(*args)
+
+
+class GraphShardedStep:
+    """A :class:`ShardedStep` over placed, donated state: the port's
+    counterpart of the reference's pjit'd per-cell entry points
+    (``jax.jit`` with ``in_shardings``, ``out_shardings`` and
+    ``donate_argnums``).
+
+    ``args`` are the step's leading arguments (parameters and AdamW state;
+    parameters and decode state; parameters), placed once by the step's
+    shardings; the step owns them and never rebinds them.  A call
+    ``step(batch)`` takes the last argument, a dict of whole tensors (every
+    rank passes the same), copies each rank's part of each leaf (the rows
+    its placement gives it, as ``distribute_tensor`` would) into static
+    placed buffers, and runs ``fn`` under ``sharded_region()`` and the
+    policy's ``activation_sharding`` as one
+    :class:`~repro_torch.graphs.StaticGraph`.  ``donate`` maps an
+    argument's index to the index in ``fn``'s result of its new value: each
+    of its leaves is written into the argument's leaf in place (a leaf that
+    ``fn`` wrote itself, and returns, is left as it is).  The call returns
+    ``fn``'s result at ``output`` (all of it if None) as clones of the
+    step's own output buffers: plain tensors as they are, DTensors with
+    their placements.
+
+    The graph is captured at the first call, on that call's batch: the
+    capture's eager warm-up is that call's step (the capture itself runs
+    nothing; the warm-up's collectives create the process groups'
+    communicators, and the clip's flattened group is made at
+    construction), and every later call is one replay.  On the CPU (gloo groups)
+    the same function runs eagerly on the same static buffers, so the
+    in-place contract is the same on both devices.  A failed capture or
+    replay raises, and a batch whose keys, shapes or dtypes differ from the
+    first call's is refused; nothing runs the sharded step eagerly instead
+    on the card.  As with :class:`GraphTrainStep`, deterministic
+    algorithms must be on at the first call if they are wanted at all.
+    """
+
+    def __init__(self, step: ShardedStep, *args, name: str,
+                 donate: Optional[Dict[int, int]] = None, output: Optional[int] = None) -> None:
+        from torch.distributed.tensor import DTensor
+
+        from repro_torch.optim.adamw import _whole_mesh
+
+        self.step = step
+        self.args = step.place(*args)
+        self.name = name
+        self.donate = dict(donate or {})
+        self.output = output
+        self.graph: Optional[StaticGraph] = None
+        self._shardings = step.in_shardings[len(args)]
+        self._specs: Dict[str, tuple] = {}
+        self._out: list = []  # the output buffers, made by the first (eager) run
+        self._out_meta: list = []  # per output leaf: None, or its DTensor layout
+        self._out_tree: list = []  # the output's structure, leaves 0
+        meshes = {t.device_mesh for t in tree_leaves(self.args) if isinstance(t, DTensor)}
+        for mesh in meshes:
+            if mesh.size() > 1:  # the clip's group, made before any capture
+                _whole_mesh(mesh)
+
+    def _layout(self, name: str):
+        sh = self._shardings[name]
+        return sh.mesh, sh.placements
+
+    def _local(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        return local_part(x, *self._layout(name))
+
+    def _step_fn(self, names, specs):
+        """The step over the batch's local parts in ``names``' order (a
+        closure of locals, so that the graph holds no reference to
+        ``self``)."""
+        from torch.distributed.tensor import DTensor
+
+        fn, args, donate, output = self.step.fn, self.args, self.donate, self.output
+        policy = self.step.policy if self.step.constrain else None
+        layouts = [(*self._layout(n), torch.Size(specs[n][0]), _contiguous_strides(specs[n][0]))
+                   for n in names]
+        out, meta, tree = self._out, self._out_meta, self._out_tree
+
+        def run(*parts: torch.Tensor):
+            batch = {n: DTensor.from_local(x, mesh, pl, run_check=False, shape=shape,
+                                           stride=stride)
+                     for n, x, (mesh, pl, shape, stride) in zip(names, parts, layouts)}
+            with sharded_region(), activation_sharding(policy):
+                result = fn(*args, batch)
+            for a, r in donate.items():
+                _write_in_place(tree_leaves(args[a]), tree_leaves(result[r]))
+            res = result if output is None else result[output]
+            leaves = tree_leaves(res)
+            local = [_local(x) for x in leaves]
+            if not out:
+                tree.append(tree_unflatten(res, [0] * len(leaves)))
+                out.extend(torch.empty_like(x) for x in local)
+                meta.extend((x.device_mesh, x.placements, x.shape, x.stride())
+                            if isinstance(x, DTensor) else None for x in leaves)
+            torch._foreach_copy_(out, local)
+            return out
+
+        return run
+
+    @property
+    def captured(self) -> bool:
+        """Whether a CUDA graph was captured (never on the CPU)."""
+        return self.graph is not None and self.graph.graph is not None
+
+    def __call__(self, batch: Dict[str, torch.Tensor]):
+        specs = _batch_layout(batch)
+        names = sorted(batch)
+        if self.graph is None:
+            missing = set(names) ^ set(self._shardings)
+            if missing:
+                raise ValueError(f"{self.name}: batch leaf {min(missing)!r} has no sharding "
+                                 f"(the step takes {sorted(self._shardings)})")
+            self._specs = specs
+            parts = [self._local(n, batch[n]) for n in names]
+            self.graph = StaticGraph(self._step_fn(names, specs), parts, name=self.name)
+            if self.captured:  # the capture's warm-up took this batch's step
+                return self._result([x.clone() for x in self._out])
+            return self._result(self.graph(*parts))
+        _check_layout(self.name, specs, self._specs)
+        return self._result(self.graph(*(self._local(n, batch[n]) for n in names)))
+
+    def _result(self, tensors):
+        from torch.distributed.tensor import DTensor
+
+        leaves = [t if m is None else DTensor.from_local(t, m[0], m[1], run_check=False,
+                                                         shape=m[2], stride=m[3])
+                  for t, m in zip(tensors, self._out_meta)]
+        return tree_unflatten(self._out_tree[0], leaves)
+
+    def load(self, *trees) -> None:
+        """Copy whole trees of the placed arguments' structure (a restored
+        checkpoint) into the step's leaves, each rank its own part: the
+        graph reads those buffers, so they are written, never rebound."""
+        from torch.distributed.tensor import DTensor
+
+        dst, src = [], []
+        for held, tree in zip(self.args, trees):
+            for t, x in zip(tree_leaves(held), tree_leaves(tree)):
+                if isinstance(t, DTensor):
+                    t, x = t.to_local(), local_part(x, t.device_mesh, t.placements)
+                dst.append(t)
+                src.append(x)
+        torch._foreach_copy_(dst, src)
+
+
+def _contiguous_strides(shape) -> Tuple[int, ...]:
+    strides, n = [], 1
+    for size in reversed(shape):
+        strides.append(n)
+        n *= size
+    return tuple(reversed(strides))
+
+
+def _write_in_place(olds, news) -> None:
+    """Write each new leaf into its old one, shard by shard (the donation);
+    a new leaf that is its old one is skipped."""
+    dst, src = [], []
+    for old, new in zip(olds, news):
+        if new is old:
+            continue
+        if getattr(old, "placements", None) != getattr(new, "placements", None):
+            raise ValueError(f"a donated leaf {tuple(old.shape)} came back laid out as "
+                             f"{getattr(new, 'placements', None)}, not as "
+                             f"{getattr(old, 'placements', None)}")
+        dst.append(_local(old))
+        src.append(_local(new))
+    if dst:
+        torch._foreach_copy_(dst, src)
+
+
+def _local(x: torch.Tensor) -> torch.Tensor:
+    return x.to_local() if hasattr(x, "to_local") else x
 
 
 def shard_train_step(
@@ -320,6 +506,15 @@ def shard_train_step(
         return params, opt_state, metrics
 
     return ShardedStep(step, policy, (p_sh, o_sh, b_sh)), (params_abs, opt_abs, batch_abs)
+
+
+def graph_train_step(fn: ShardedStep, params, opt_state: AdamWState, *,
+                     name: str) -> GraphShardedStep:
+    """:func:`shard_train_step`'s step as one graph over donated parameters
+    and AdamW state (``donate_argnums=(0, 1)``): ``step(batch) -> metrics``,
+    the replicated 0-d ``loss``, ``lr`` and ``grad_norm``; ``step.args``
+    holds the placed ``(params, opt_state)``."""
+    return GraphShardedStep(fn, params, opt_state, donate={0: 0, 1: 1}, output=2, name=name)
 
 
 def _replicated(x: torch.Tensor) -> torch.Tensor:
