@@ -67,7 +67,7 @@ Phases (any failure exits non-zero; there is no CPU path):
    ``CounterStream`` draws and the densities at B = 1): theta bit for bit,
    counts equal; (b) the coupled mode, ``balanced_mlda(device_resident=True)``
    with the fine BatchServers only, 5 chains x 150 fine samples: fine
-   samples/s, ``device_seconds``, fine-pool utilization, the balancer's idle
+   samples/s, fine-pool utilization, the balancer's idle
    times, both kernels' launches (mostly from graph replays) and the
    propose graph's wall; (c) chain scaling, a GP-only fused ensemble at C =
    1, 4, 16, 64 (512 steps) against C step machines (64 steps); (d) the
@@ -1655,8 +1655,7 @@ def phase_device_ensemble(torch, w, rows, res=None, smi: str = "") -> None:
     totals = result.level_totals()
     print(f"[4c] (b) coupled, {ENSEMBLE_CHAINS} chains x {ENSEMBLE_FINE_SAMPLES} fine samples, "
           f"subchains {list(w.subchain_lengths)}, {len(servers)} fine BatchServers ({smi}): "
-          f"wall {wall:.2f} s, fine samples/s {n_fine / wall:.2f}, device_seconds "
-          f"{runner.device_seconds:.2f} s ({runner.device_seconds / wall:.1%} of the wall), "
+          f"wall {wall:.2f} s, fine samples/s {n_fine / wall:.2f}, "
           f"fine-pool utilization {busy / (wall * len(servers)):.1%}; balancer idle mean "
           f"{summary['mean_idle_s'] * 1e3:.3f} ms, p99 {summary['p99_idle_s'] * 1e3:.3f} ms; "
           f"batch histogram {summary['batch_histogram']}")

@@ -17,7 +17,9 @@ Layout (DESIGN.md §2-3):
   (``wait_any`` / ``as_completed`` / ``gather``) so one thread can keep
   many requests outstanding (the ensemble driver's contract);
 * :mod:`repro_torch.balancer.telemetry`  — idle-time/timeline bookkeeping and
-  the runtime EWMA cost model, behind its own lock;
+  the runtime EWMA cost model, behind its own lock; it books the
+  requests' spans while the span recorder (:mod:`repro_torch.spans`,
+  re-exported here) is on;
 * :mod:`repro_torch.balancer.health`     — self-healing pools: quarantine /
   probe / re-admission lifecycle and per-(server, tag) circuit breakers
   (opt-in via ``LoadBalancer(health=...)``);
@@ -46,6 +48,8 @@ from .policies import (
     register_policy,
 )
 from .queueing import FreeServerIndex, IndexedQueue
+from repro_torch.spans import SPANS, Span, SpanLog, SpanRecorder
+
 from .telemetry import P2Quantile, Telemetry
 from .types import (
     BatchServer,
@@ -98,11 +102,15 @@ __all__ = [
     "Request",
     "RequestCancelled",
     "RoundRobinPolicy",
+    "SPANS",
     "SchedulingPolicy",
     "Server",
     "ServerDiedError",
     "ServerStats",
     "ShardedBatchServer",
+    "Span",
+    "SpanLog",
+    "SpanRecorder",
     "Telemetry",
     "as_completed",
     "available_policies",

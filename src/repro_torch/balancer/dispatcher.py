@@ -47,6 +47,8 @@ import time
 from collections import deque
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+from repro_torch.spans import SPANS, SpanLog
+
 from .health import HealthConfig, HealthMonitor
 from .policies import PolicyContext, SchedulingPolicy, create_policy
 from .queueing import FreeServerIndex, IndexedQueue
@@ -948,6 +950,8 @@ class LoadBalancer:
         with self._cv:
             extra = self._queue.drain_batchable(req.tag, limit - 1)
         members = [req] + extra
+        if SPANS.on:
+            req.popped_at = req.dispatched_at
         # Re-stamp the primary past the coalescing wait: the window is
         # queueing, not service — booking it as service time would inflate
         # the tag EWMA that sizes the adaptive window (a feedback loop,
@@ -1015,7 +1019,7 @@ class LoadBalancer:
         # errored), plus request-count credit for the coalesced members;
         # errored members were booked above so summary()['failures'] does
         # not misread poisoned thetas as served work.
-        self._telemetry.record_completion(req, server)
+        self._telemetry.record_completion(req, server, len(members))
         self._telemetry.record_batched(extra, server)
         self._telemetry.record_batch_size(req.tag, len(members))
         self._book_wire(req.tag, server, done - now)
@@ -1210,6 +1214,21 @@ class LoadBalancer:
     def stats_table(self) -> List[Dict[str, Any]]:
         """Per-tag serving rows (completions, EWMA service time, tokens)."""
         return self._telemetry.stats_table()
+
+    def spans(self) -> SpanLog:
+        """Drain the process's span recorder (:data:`repro_torch.spans.SPANS`,
+        which records only between its ``enable()`` and ``disable()``): the
+        spans of this balancer's requests, its pools and the drivers around
+        it.
+
+        For an operator, each completed request's ``balancer.request`` span
+        splits its latency into ``balancer.queue`` (or ``balancer.admit``),
+        ``balancer.coalesce`` and ``balancer.service`` children, by tag and
+        server (``balancer.service``'s tag): whether a slow tag waits for a
+        free server, for its batch to fill, or in the server itself.  The
+        ``summary()`` figures give the same waits only as means over all
+        tags."""
+        return SPANS.drain()
 
     # -- checkpointing (paper §7 future work) --------------------------------
     def checkpoint_queue(self) -> List[Dict[str, Any]]:

@@ -29,12 +29,17 @@ memory is bounded for million-request runs —
 paper-figure reproduction runs; ``summary()`` returns the same keys in
 both modes.  The EWMA cost model consumed by the ``cost_aware`` policy
 (per tag and per (server, tag); see DESIGN.md §3) is O(1) in both modes.
+
+While the span recorder (:data:`repro_torch.spans.SPANS`) is on, a
+completion also books the request's ``balancer.*`` spans from its stamps.
 """
 from __future__ import annotations
 
 import threading
 from collections import deque
 from typing import Any, Dict, List, Optional, Sequence
+
+from repro_torch.spans import SPANS
 
 from .types import Request, Server
 
@@ -123,6 +128,23 @@ class P2Quantile:
         return self._heights[2]
 
 
+def _book_spans(req: Request, server: Server, batch: int) -> None:
+    """Book a completed request's ``balancer.request`` span and its children
+    (:mod:`repro_torch.spans`) from the stamps it carries."""
+    rid = SPANS.new_id()
+    arrived, dispatched, seq = req.arrived_at, req.dispatched_at, req.seq
+    # A pop stamp is taken only by a coalescing window, while recording.
+    popped = req.popped_at if arrived <= req.popped_at <= dispatched else dispatched
+    wait = "balancer.admit" if server.continuous else "balancer.queue"
+    SPANS.add(wait, arrived, popped, parent=rid, request=seq, tag=req.tag)
+    if popped < dispatched:
+        SPANS.add("balancer.coalesce", popped, dispatched, parent=rid, request=seq, tag=req.tag)
+    SPANS.add("balancer.service", dispatched, req.completed_at, parent=rid, request=seq,
+              tag=server.name, n=batch)
+    SPANS.add("balancer.request", arrived, req.completed_at, id=rid, request=seq,
+              tag=req.tag, n=batch)
+
+
 class Telemetry:
     """Thread-safe request history + runtime statistics."""
 
@@ -185,8 +207,10 @@ class Telemetry:
         and the history window reflect real traffic only."""
         self._history.append(req)  # ring append: atomic under the GIL
 
-    def record_completion(self, req: Request, server: Server) -> None:
-        """Book a completion: server stats + runtime model + idle stats.
+    def record_completion(self, req: Request, server: Server, batch: int = 1) -> None:
+        """Book a completion: server stats + runtime model + idle stats
+        (and, while the span recorder records, the request's spans; ``batch``
+        is the size of the call that served it).
 
         Per-server bookkeeping is eager and lock-free: a server is
         executed by exactly one worker at a time (it is ``busy`` from
@@ -208,12 +232,17 @@ class Telemetry:
         # Server objects (retire_server retires by name), so its
         # read-modify-write stays under the lock — in the fold.
         self._pending.append(("completion", req, server))
+        if SPANS.on:
+            _book_spans(req, server, batch)
         self._maybe_fold()
 
     def record_batched(self, reqs: Sequence[Request], server: Server) -> None:
         """Book the extra members of a coalesced batch (one fused solve)."""
         server.stats.n_requests += len(reqs)  # eager: single-owner stats
         self._pending.append(("batched", tuple(reqs), server))
+        if SPANS.on:
+            for r in reqs:
+                _book_spans(r, server, len(reqs) + 1)
         self._maybe_fold()
 
     def _maybe_fold(self) -> None:

@@ -16,6 +16,8 @@ from typing import Any, Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.spans import SPANS
+
 
 @dataclass
 class ServerStats:
@@ -756,6 +758,10 @@ class PagedDecodePool(DecodePool):
         A slot whose prompt completes this boundary emits its first token
         (argmax of the prefill — the TTFT stamp) and joins the fused
         decode step of this same boundary.
+
+        While the span recorder records, a request's first token closes
+        its ``pool.prefill`` span, from its admission stamp
+        (``dispatched_at``).
         """
         finished: List[DecodeSlot] = []
         n_emitted = 0
@@ -769,6 +775,10 @@ class PagedDecodePool(DecodePool):
                 continue
             info.tokens.append(int(tok))
             info.times.append(self.clock())
+            if SPANS.on:
+                SPANS.add("pool.prefill", info.req.dispatched_at, info.times[0],
+                          request=info.req.seq, tag=info.req.tag,
+                          n=-(-len(info.prompt) // self.prefill_chunk))
             n_emitted += 1
             if info.finished:
                 self._evict(slot, info)
@@ -824,6 +834,9 @@ class Request:        # numpy thetas ("truth value ambiguous" in queue.remove)
     arrived_at: float = 0.0
     dispatched_at: float = 0.0
     completed_at: float = 0.0
+    # the pop from the queue, where a coalescing window then held the
+    # request; stamped only while the span recorder records
+    popped_at: float = 0.0
     server: Optional[str] = None
     retries: int = 0
     result: Any = None

@@ -22,6 +22,7 @@ import numpy as np
 from repro_torch.balancer import LoadBalancer
 from repro_torch.core.diagnostics import effective_sample_size, gelman_rubin
 from repro_torch.core.mlda import ChainState, LevelRecord, MLDASampler, PendingEval
+from repro_torch.spans import SPANS
 
 
 Theta0 = Union[np.ndarray, Sequence[float], Callable[[int, np.random.Generator], np.ndarray]]
@@ -207,6 +208,11 @@ class EnsembleRunner:
         # callbacks while other chains' requests churn.
         wake = threading.Event()
         printed = 0
+        # While the span recorder records, the run is a driver.round span
+        # and each sleep on the balancer a driver.wait child.
+        round_id = SPANS.new_id() if SPANS.on else 0
+        if round_id:
+            t_round = time.monotonic()
         while runnable or parked:
             revived: List[int] = []
             for c in runnable:
@@ -240,7 +246,11 @@ class EnsembleRunner:
             if not parked:
                 break  # every chain finished (or failed)
             if not any(req.done.is_set() for (_pe, _lp, req) in parked.values()):
+                if round_id:
+                    t_wait = time.monotonic()
                 wake.wait()
+                if round_id:
+                    SPANS.add("driver.wait", t_wait, time.monotonic(), parent=round_id)
             wake.clear()
             for c in list(parked):
                 pe, lp, req = parked[c]
@@ -280,6 +290,9 @@ class EnsembleRunner:
                 for c in ok
             ]
         )
+        if round_id:
+            SPANS.add("driver.round", t_round, time.monotonic(), id=round_id,
+                      n=int(out.shape[0] * out.shape[1]))
         return EnsembleResult(
             chains=out,
             samplers=[self.samplers[c] for c in ok],
@@ -506,8 +519,13 @@ class DeviceEnsembleRunner:
     chains equal per-chain :class:`MLDASampler` machines driven by
     :class:`~repro_torch.core.counter_rng.CounterStream` and
     :class:`~repro_torch.core.mlda_device.DeviceMatchedRandomWalk` bit for
-    bit.  ``device_seconds`` is the wall time inside the device programs,
-    each ended by its host copy.
+    bit.
+
+    While the span recorder (:data:`repro_torch.spans.SPANS`) records, a run is a
+    ``driver.round`` span; its ``driver.sync`` children are the host reads
+    that wait for the ensemble's graphs, its ``driver.wait`` children the
+    waits for fine solves.  The rest of the round is the driver's host
+    work, graph launches included.
     """
 
     def __init__(
@@ -526,8 +544,8 @@ class DeviceEnsembleRunner:
         self.seed = int(seed)
         self.chunk = max(int(chunk), 1)
         self.balancer = balancer or getattr(fine_density, "balancer", None)
-        self.device_seconds = 0.0  # wall-clock inside the device programs
         self.state = None  # EnsembleState after run()
+        self._round = 0  # id of the driver.round span being recorded, or 0
 
     # -- driver ---------------------------------------------------------------
     def run(
@@ -553,11 +571,18 @@ class DeviceEnsembleRunner:
         n_samples = int(n_samples)
         ens = self.ensemble
         top_seconds = np.zeros(n_chains)
+        self._round = SPANS.new_id() if SPANS.on else 0
+        t_round = time.monotonic() if self._round else 0.0
         if ens.remote_top:
             chains = self._run_coupled(theta0, n_samples, top_seconds, progress_every)
         else:
             chains = self._run_fused(theta0, n_samples, progress_every)
+        t0 = time.monotonic() if self._round else 0.0
         counts = self.state.counts.cpu().numpy()
+        if self._round:
+            self._span("driver.sync", t0)
+            SPANS.add("driver.round", t_round, time.monotonic(), id=self._round,
+                      n=n_chains * n_samples)
         samplers = []
         for c in range(n_chains):
             levels = []
@@ -571,6 +596,10 @@ class DeviceEnsembleRunner:
                 levels[-1].eval_seconds = float(top_seconds[c])
             samplers.append(DeviceChainStats(levels))
         return EnsembleResult(chains=chains, samplers=samplers, failures={})
+
+    def _span(self, name: str, start: float) -> None:
+        """Close a ``driver.sync`` or ``driver.wait`` span of this round."""
+        SPANS.add(name, start, time.monotonic(), parent=self._round)
 
     def _progress(self, total: int, printed: int, every: int, of: int, what: str) -> int:
         while every and total >= printed + every:
@@ -588,10 +617,11 @@ class DeviceEnsembleRunner:
         drawn = printed = 0
         while drawn < n_samples:
             k = min(self.chunk, n_samples - drawn)
-            t0 = time.monotonic()
             state, thetas, _logps = ens.advance(state, k)
+            t0 = time.monotonic() if self._round else 0.0
             out.append(thetas.cpu().numpy())  # host sync: the replays really finished
-            self.device_seconds += time.monotonic() - t0
+            if self._round:
+                self._span("driver.sync", t0)
             drawn += k
             printed = self._progress(drawn * n_chains, printed, progress_every,
                                      n_samples * n_chains, "fused chain steps")
@@ -610,23 +640,29 @@ class DeviceEnsembleRunner:
         n_chains, dim = theta0.shape
         # Initial top density per chain: the one start-state evaluation the
         # Python machine books per level (counts[..., 2] starts at 1).
+        t0 = time.monotonic() if self._round else 0.0
         logp0 = np.array([float(density(theta0[c])) for c in range(n_chains)])
+        if self._round:
+            self._span("driver.wait", t0)
         state = ens.init(theta0, seed=self.seed, logp0=logp0)
         samples = np.empty((n_chains, n_samples, dim), np.float32)
         printed = 0
         asynchronous = hasattr(density, "begin_many")
         for i in range(n_samples):
-            t0 = time.monotonic()
             state, pending = ens.propose(state)
+            t0 = time.monotonic() if self._round else 0.0
             moved = np.nonzero(pending.moved.cpu().numpy())[0]
             psi = pending.psi.cpu().numpy()
-            self.device_seconds += time.monotonic() - t0
+            if self._round:
+                self._span("driver.sync", t0)
             logp_psi = np.zeros(n_chains, np.float64)
             if not asynchronous:
                 for c in moved:
                     t1 = time.monotonic()
                     logp_psi[c] = float(density(psi[c]))
                     top_seconds[c] += time.monotonic() - t1
+                    if self._round:
+                        self._span("driver.wait", t1)
             else:
                 # Submitted together: the balancer queues the moved chains'
                 # solves at once and coalesces them into stacked batches;
@@ -635,12 +671,16 @@ class DeviceEnsembleRunner:
                     if req is None:  # prior rejected locally: no solve needed
                         logp_psi[c] = lp
                         continue
+                    t1 = time.monotonic() if self._round else 0.0
                     logp_psi[c] = density.finish(lp, req)
+                    if self._round:
+                        self._span("driver.wait", t1)
                     top_seconds[c] += req.service_time
-            t2 = time.monotonic()
             state, _accepted = ens.accept(state, pending, logp_psi)
+            t2 = time.monotonic() if self._round else 0.0
             samples[:, i] = state.theta.cpu().numpy()
-            self.device_seconds += time.monotonic() - t2
+            if self._round:
+                self._span("driver.sync", t2)
             printed = self._progress((i + 1) * n_chains, printed, progress_every,
                                      n_samples * n_chains,
                                      f"fine samples across {n_chains} chains")

@@ -24,6 +24,8 @@ not threads (DESIGN.md §9).
 """
 from __future__ import annotations
 
+import time
+from contextlib import nullcontext
 from dataclasses import replace
 from typing import Callable, List, Optional, Sequence
 
@@ -31,18 +33,34 @@ import numpy as np
 import torch
 
 from repro_torch.balancer import BatchServer, Server, ShardedBatchServer
+from repro_torch.spans import SPANS
 
 
 def _on_host(fn: Callable, device: torch.device) -> Callable:
+    """``fn`` with numpy in and out, on a stream of its own on the card.
+    While the span recorder records, a call is a ``pool.call`` span (tag
+    the returned function's ``tag``, which the caller sets to the level;
+    ``n`` the rows) whose child ``pool.sync`` is the read of the result to
+    the host; the rest is host work: the copy in, padding and the graph's
+    launch."""
     stream = torch.cuda.Stream(device) if device.type == "cuda" else None
 
     def call(thetas) -> np.ndarray:
         x = np.asarray(thetas, dtype=np.float32)
-        if stream is None:
-            return fn(torch.as_tensor(x)).numpy()
-        with torch.cuda.stream(stream):
-            return fn(torch.as_tensor(x, device=device)).cpu().numpy()
+        t0 = time.monotonic() if SPANS.on else None
+        with torch.cuda.stream(stream) if stream is not None else nullcontext():
+            out = fn(torch.as_tensor(x, device=device))
+            if t0 is None:
+                return out.cpu().numpy()
+            t1 = time.monotonic()
+            host = out.cpu().numpy()
+        t2 = time.monotonic()
+        sid = SPANS.new_id()
+        SPANS.add("pool.sync", t1, t2, parent=sid, tag=call.tag, n=len(x))
+        SPANS.add("pool.call", t0, t2, id=sid, tag=call.tag, n=len(x))
+        return host
 
+    call.tag = ""
     return call
 
 
@@ -106,6 +124,11 @@ def make_level_servers(
     def sharded(level: int) -> bool:
         return batching and policy is not None and sf[level] is not None
 
+    def on_host(fn: Callable, level: int, tag: str) -> Callable:
+        call = _on_host(fn, devices[level])
+        call.tag = tag  # the level, in the pool.call spans
+        return call
+
     def server(level: int, single: Callable, name: str, tag: str) -> Server:
         if sharded(level):
             return ShardedBatchServer(
@@ -114,10 +137,10 @@ def make_level_servers(
             )
         if batching and bf[level] is not None:
             return BatchServer(
-                _on_host(bf[level], devices[level]), name=name,
+                on_host(bf[level], level, tag), name=name,
                 capacity_tags=(tag,), max_batch=max_batch,
             )
-        return Server(_on_host(single, devices[level]), name=name, capacity_tags=(tag,))
+        return Server(on_host(single, level, tag), name=name, capacity_tags=(tag,))
 
     servers = [server(0, gp, "gp-0", "level0")]
     for level, f, pool, replica in ((1, f_coarse, "coarse-pool", "coarse"),

@@ -21,7 +21,7 @@ import torch
 from repro.core.gp import fit_gp as jax_fit_gp
 from repro.swe import TohokuScenario as JaxScenario
 from repro.swe import make_hierarchy as jax_make_hierarchy
-from repro_torch.balancer import Server
+from repro_torch.balancer import SPANS, Server
 from repro_torch.core import (
     CounterStream,
     DeviceMatchedRandomWalk,
@@ -150,13 +150,25 @@ def test_draw_table_covers_every_counter_a_step_consumes():
 def test_runner_fused_mode_counts_and_chains():
     ens = make_device_ensemble([lp0, lp1], [3], 0.8, device=CPU)
     runner = DeviceEnsembleRunner(ens, seed=7, chunk=4)
-    res = runner.run(THETA0, 25)
+    SPANS.drain()
+    SPANS.enable()
+    try:
+        res = runner.run(THETA0, 25)
+    finally:
+        SPANS.disable()
+    spans = SPANS.drain().spans
     ref, ref_counts = host_chains([lp0, lp1], [3], 0.8, THETA0, 25, seed=7)
     assert np.array_equal(bits(res.chains), bits(ref))
     for c in range(THETA0.shape[0]):
         assert counts_of(res.samplers[c]) == ref_counts[c]
     assert res.summary()["n_chains"] == THETA0.shape[0]
-    assert runner.device_seconds > 0
+    # The run is one driver.round; its reads of the chunks' results (7
+    # chunks of 4 steps, then the counts) are driver.sync children.
+    (rnd,) = [s for s in spans if s.name == "driver.round"]
+    assert rnd.n == THETA0.shape[0] * 25
+    syncs = [s for s in spans if s.name == "driver.sync"]
+    assert len(syncs) == 8 and all(s.parent == rnd.id for s in syncs)
+    assert all(rnd.start <= s.start <= s.end <= rnd.end for s in syncs)
 
 
 def test_runner_rejects_per_chain_callable_theta0():
