@@ -151,7 +151,12 @@ Phases (any failure exits non-zero; there is no CPU path):
    and B = 8 graphs equal the eager steps bit for bit (logits, and the
    recurrent state after), a ``PagedGraphs`` equals the eager paged
    functions bit for bit (granite's at both capacity factors), and decode
-   steps at B = 1 and 8 are timed eager against replay;
+   steps at B = 1 and 8 are timed eager against replay; (f) first, the
+   reduced granite's paged decode step at 32 slots as one captured graph:
+   three replays, each equal to the eager step on a copy of the state bit
+   for bit, each MoE counter grown by three times the graph's captured
+   tally, every MoE call pooled (in the eager steps, 1 group of 32 tokens
+   at capacity 32 a layer, no pair dropped);
 6d. the last families in bf16 (seeded weights drawn on the card), one
    after another, each freed before the next: (a) the four full configs'
    parameter counts from their shapes, within the reference's bounds;
@@ -2976,6 +2981,108 @@ def family_serving(torch, cfg, params, fp32_layers, phase: str = "6c"):
     print(f"[{phase}] {cfg.arch_id} serving: " + "; ".join(row(m) for m in modes))
 
 
+MOE_ROUTE_SLOTS = 32
+MOE_COUNTERS = ("moe_dispatch pooled", "moe_dispatch per_sequence", "moe_rows computed",
+                "moe_pairs routed")
+
+
+class MoEDrops:
+    """Inside ``with drops:`` (a ``MoEDrops``, entered once or more) every
+    call of the MoE dispatch goes through to it; ``drops.groups`` lists
+    the routing groups (shape, capacity) it was given and ``drops.pairs``
+    sums the pairs it sent past capacity (to the scratch row), over every
+    layer of every step run inside."""
+
+    def __init__(self):
+        self.groups, self._dropped = [], []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self._moe, self.dispatch = moe, moe._dispatch
+        moe._dispatch = self
+        return self
+
+    def __call__(self, params, x, m, cap):
+        out = self.dispatch(params, x, m, cap)
+        self.groups.append((tuple(x.shape), cap))
+        self._dropped.append(out[2].sum())
+        return out
+
+    @property
+    def pairs(self) -> int:
+        return int(sum(self._dropped)) if self._dropped else 0
+
+    def __exit__(self, *exc):
+        self._moe._dispatch = self.dispatch
+
+
+def moe_route_checks(torch, phase: str = "6c") -> None:
+    """(f) The reduced granite's paged decode step at 32 slots captured as
+    one graph (``PagedGraphs.step``, a ``StaticGraph``) and replayed three
+    times: each replay equals the eager step on a copy of the state bit
+    for bit (ids, logits, positions, block pool), each MoE counter grows by
+    three times the graph's captured tally, every MoE call of the tally is
+    pooled (rows E x 32, pairs 32 k a layer), and the eager steps, on the
+    replays' inputs, route one group of 32 tokens at capacity 32 a layer
+    and drop no pair."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import build
+    from repro_torch.models import build_model
+    from repro_torch.models.lm import paged_decode_step, paged_reset_slot
+    from repro_torch.runtime.serve_loop import PagedGraphs
+
+    cfg = ARCHS["granite-moe-3b-a800m"].reduced()
+    m, n = cfg.moe, MOE_ROUTE_SLOTS
+    bundle = build_model(cfg)
+    params = bundle.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+    max_blocks = SERVE_CACHE_LEN // PAGED_BLOCK_SIZE
+    g = PagedGraphs(bundle, params, n_slots=n, n_blocks=n * max_blocks,
+                    block_size=PAGED_BLOCK_SIZE, cache_len=SERVE_CACHE_LEN, name="check moe route")
+    for slot in range(n):
+        paged_reset_slot(g.state, slot, [1 + max_blocks * slot + b for b in range(max_blocks)])
+    g.state.pos.copy_(torch.arange(n, device="cuda"))
+    tally = {k: g.step.launches.get(k, 0) for k in MOE_COUNTERS}
+    want_tally = {"moe_dispatch pooled": cfg.n_layers, "moe_dispatch per_sequence": 0,
+                  "moe_rows computed": cfg.n_layers * m.n_experts * n,
+                  "moe_pairs routed": cfg.n_layers * n * m.top_k}
+    feeds = torch.randint(0, cfg.vocab, (n,), device="cuda",
+                          generator=torch.Generator(device="cuda").manual_seed(1))
+    active = torch.ones((n,), dtype=torch.bool, device="cuda")
+    grew = dict.fromkeys(MOE_COUNTERS, 0)
+    unequal_, checks, drops = 0, 0, MoEDrops()
+    for _ in range(3):
+        ref = _clone_paged(g.state)
+        with drops:
+            want = paged_decode_step(params, cfg, ref, feeds, active, SERVE_CACHE_LEN)
+        before = {k: build.counter(k).value for k in MOE_COUNTERS}
+        ids, logits = g.step(feeds, active)
+        for k in MOE_COUNTERS:
+            grew[k] += build.counter(k).value - before[k]
+        for a, b in ((ids, want[1]), (logits, want[2]), (g.state.pos, want[0].pos),
+                     *zip(_paged_written(g.state), _paged_written(ref))):
+            unequal_ += 0 if torch.equal(a, b) else 1
+            checks += 1
+        feeds = ids
+    groups, want_groups = sorted(set(drops.groups)), [((1, n, cfg.d_model), n)]
+    print(f"[{phase}] reduced {cfg.arch_id} ({m.n_experts} experts, top-{m.top_k}, "
+          f"{cfg.n_layers} layers) paged decode step at {n} slots, one graph: captured tally "
+          f"{tally}; grown over 3 replays {grew}; replay vs eager (ids, logits, positions, block "
+          f"pool; bit for bit): {unequal_} of {checks} unequal; the 3 eager steps' dispatches: "
+          f"{len(drops.groups)} calls, groups (shape, capacity) {groups}, {drops.pairs} pairs "
+          f"dropped")
+    if tally != want_tally:
+        fail(f"the MoE counters' captured tally {tally} is not {want_tally}")
+    if grew != {k: 3 * v for k, v in tally.items()}:
+        fail(f"the MoE counters grew by {grew} over 3 replays of the tally {tally}")
+    if len(drops.groups) != 3 * cfg.n_layers or groups != want_groups:
+        fail(f"the eager steps dispatched {drops.groups}, not {want_groups} in each of "
+             f"{cfg.n_layers} layers")
+    if unequal_ or drops.pairs:
+        fail(f"{unequal_} of {checks} replay-vs-eager comparisons unequal; {drops.pairs} pairs "
+             f"dropped")
+
+
 class FlashCalls:
     """Inside ``with FlashCalls() as calls:`` every call of the flash
     kernel's wrapper goes through to it, and ``calls.first`` keeps the
@@ -3180,6 +3287,7 @@ def phase_families(torch, rows, ended=lambda phase: None):
     from repro_torch.configs import ARCHS
 
     param_counts(torch, FAMILY_ARCHS, "6c")
+    moe_route_checks(torch)
     flash = rows["flash_attention"]
     flash["launches_phase_6c"] = {}
     for name in FAMILY_ARCHS:
@@ -4026,7 +4134,7 @@ def train_graph_checks(torch, smi: str) -> None:
 
 def phase_training(torch, smi: str, ended=lambda phase: None) -> dict:
     """7: training, (a)-(g); no kernel of the port may launch (the graph
-    trainers' replays are counted apart)."""
+    trainers' replays and the MoE tallies are counted apart)."""
     from repro_torch.kernels import build
 
     import gc
@@ -4055,9 +4163,10 @@ def phase_training(torch, smi: str, ended=lambda phase: None) -> dict:
     ended("7f-g refusal, graph against eager")
     counts = {n: c.value for n, c in build.COUNTERS.items() if c.value}
     replays = {n: v for n, v in counts.items() if n.startswith("graph_replays ")}
-    launched = {n: v for n, v in counts.items() if n not in replays}
+    tallies = {n: v for n, v in counts.items() if n in build.TALLIES}
+    launched = build.launches()
     print(f"[7] kernel launches during training: {launched or 'none'} (the path takes the plain "
-          f"blocked attention); graph replays {replays}")
+          f"blocked attention); graph replays {replays}; tallies {tallies}")
     if launched:
         fail(f"7: training launched kernels {launched}")
     return out

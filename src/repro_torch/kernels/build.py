@@ -19,7 +19,7 @@ import subprocess
 import threading
 from contextlib import contextmanager
 from pathlib import Path
-from typing import Dict, Iterable, Iterator, List, Sequence, Tuple
+from typing import Dict, Iterable, Iterator, List, Sequence, Set, Tuple
 
 import torch
 
@@ -184,10 +184,30 @@ LIBRARY = KernelLibrary()
 COUNTERS: Dict[str, LaunchCounter] = {}
 
 
+# Counters of amounts the program tallies, not of a kernel's launches (the
+# MoE route's calls, rows and pairs); see ``tally``.
+TALLIES: Set[str] = set()
+
+
 def counter(name: str) -> LaunchCounter:
     """The launch counter of kernel ``name`` (created on first request)."""
     c = COUNTERS.get(name)
     return c if c is not None else COUNTERS.setdefault(name, LaunchCounter(name))
+
+
+def tally(name: str) -> LaunchCounter:
+    """The counter of an amount ``name`` that the program tallies rather
+    than a kernel's launches: added, captured into a graph and replayed
+    like a launch count, but left out of ``launches``."""
+    TALLIES.add(name)
+    return counter(name)
+
+
+def launches() -> Dict[str, int]:
+    """The nonzero kernel launch counts by counter name: every counter but
+    the graph replays (``graph_replays <name>``) and the tallies."""
+    return {n: c.value for n, c in list(COUNTERS.items())
+            if c.value and n not in TALLIES and not n.startswith("graph_replays ")}
 
 
 def check_launch(err: int, kernel: str) -> None:

@@ -3,7 +3,12 @@ dense all-experts oracle.
 
 The reference's ``models/moe.py`` for one card.  Routing is per sequence,
 as the reference ``vmap``s it over the batch: a row's drops never depend on
-its neighbours.  A pair (token, expert) is ranked within its expert's group
+its neighbours.  Where that capacity cannot drop a pair (a token takes an
+expert at most once, so a capacity of at least the sequence's length keeps
+every pair), the whole batch is routed as one group instead, at a capacity
+of its token count: the same pairs, weights and sums, over far fewer expert
+rows (a decode step of 32 one-token sequences: 32 rows an expert, not
+32 x 8).  A pair (token, expert) is ranked within its expert's group
 by a stable sort of the expert ids; the first ``cap`` pairs of each expert
 fill its ``cap`` rows, the rest are dropped.  Where the reference
 scatter-adds dropped pairs as zeros into slot 0, dropped pairs here go to a
@@ -20,8 +25,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig, MoEConfig
-
-from repro_torch.runtime.sharding import maybe_constrain_moe
+from repro_torch.kernels import build
+from repro_torch.runtime.sharding import _is_dtensor, maybe_constrain_moe
 
 from .layers import Params, dense_init, normal_init
 
@@ -47,12 +52,30 @@ def _router_topk(params: Params, x2: torch.Tensor, moe: MoEConfig):
     return torch.softmax(top_vals, dim=-1), top_idx
 
 
+def _round8(n: int) -> int:
+    return max(8, -(-n // 8) * 8)
+
+
 def _capacity(moe: MoEConfig, n: int) -> int:
     """Rows an expert takes from one sequence of ``n`` tokens: 1.25 n k / E
     rounded up to a multiple of 8, at least 8 (so a decode step, n = 1,
     never drops)."""
-    cap = int(moe.capacity_factor * n * moe.top_k / moe.n_experts)
-    return max(8, -(-cap // 8) * 8)
+    return _round8(int(moe.capacity_factor * n * moe.top_k / moe.n_experts))
+
+
+def _groups(x: torch.Tensor, moe: MoEConfig):
+    """The routing groups of x (B, S, d) and their capacity -> (x as (G, N,
+    d), cap).  Each sequence is a group of its own at ``_capacity``, unless
+    that capacity is at least S (no pair can drop) and there is more than
+    one sequence of plain tensors: then the batch is one group of B * S
+    tokens at capacity B * S rounded up to 8, which no expert can overflow
+    either.  A sharded batch keeps its groups (its dispatch is constrained
+    per sequence)."""
+    b, s, d = x.shape
+    cap = _capacity(moe, s)
+    if b == 1 or cap < s or _is_dtensor(x):
+        return x, cap
+    return x.reshape(1, b * s, d), _round8(b * s)
 
 
 def _dispatch(params: Params, x: torch.Tensor, moe: MoEConfig, cap: int):
@@ -104,18 +127,29 @@ def _combine(ys: torch.Tensor, info, s: int, k: int) -> torch.Tensor:
 
 
 def moe_ffn_sparse(params: Params, x: torch.Tensor, moe: MoEConfig) -> torch.Tensor:
-    """x (B, S, d) -> (B, S, d) with per-sequence capacity dropping: the
-    experts run as grouped matmuls over (E, B * cap, d)."""
+    """x (B, S, d) -> (B, S, d) with per-sequence capacity dropping, routed
+    in the groups of :func:`_groups`: the experts run as grouped matmuls
+    over (E, G * cap, d).
+
+    Tallies (``kernels.build.tally``: counters that graph replays add their
+    captured tally to, kept out of the launch counts): ``moe_dispatch
+    pooled`` / ``moe_dispatch per_sequence``, the calls on each route;
+    ``moe_rows computed`` and ``moe_pairs routed``, the expert rows and the
+    (token, expert) pairs of each call."""
     b, s, d = x.shape
-    e = moe.n_experts
-    cap = _capacity(moe, s)
-    xs, info, _ = _dispatch(params, x, moe, cap)
-    xs4 = maybe_constrain_moe(xs.reshape(b, e, cap, d))
-    xe = xs4.transpose(0, 1).reshape(e, b * cap, d)
+    e, k = moe.n_experts, moe.top_k
+    xg, cap = _groups(x, moe)
+    g, n = xg.shape[:2]
+    build.tally("moe_dispatch per_sequence" if g == b else "moe_dispatch pooled").add()
+    build.tally("moe_rows computed").add(e * g * cap)
+    build.tally("moe_pairs routed").add(b * s * k)
+    xs, info, _ = _dispatch(params, xg, moe, cap)
+    xs4 = maybe_constrain_moe(xs.reshape(g, e, cap, d))
+    xe = xs4.transpose(0, 1).reshape(e, g * cap, d)
     h = F.silu(torch.bmm(xe, params["w_gate"])) * torch.bmm(xe, params["w_up"])
-    ye = torch.bmm(h, params["w_down"])  # (E, B * cap, d)
-    ys = maybe_constrain_moe(ye.reshape(e, b, cap, d).transpose(0, 1)).reshape(b, e * cap, d)
-    return _combine(ys, info, s, moe.top_k)
+    ye = torch.bmm(h, params["w_down"])  # (E, G * cap, d)
+    ys = maybe_constrain_moe(ye.reshape(e, g, cap, d).transpose(0, 1)).reshape(g, e * cap, d)
+    return _combine(ys, info, n, k).reshape(b, s, d)
 
 
 def moe_ffn_dense(params: Params, x: torch.Tensor, moe: MoEConfig) -> torch.Tensor:

@@ -260,6 +260,27 @@ def test_counters_tally_captured_launches_and_count_replays():
     assert (c.value, c.replayed) == (0, 0)
 
 
+def test_launches_leave_out_graph_replays_and_tallies():
+    """A tally is counted, captured and replayed like a launch count, but
+    ``launches()`` reports only kernel launches: neither tallies nor graph
+    replays."""
+    names = ("toy kernel", "graph_replays toy", "toy tally")
+    try:
+        build.counter(names[0]).add()
+        build.counter(names[1]).add()
+        with build.recording() as tally:
+            build.tally(names[2]).add(5)
+        assert tally == {names[2]: 5} and build.counter(names[2]).value == 0
+        build.counter(names[2]).add(5, replayed=True)
+        got = build.launches()
+        assert got[names[0]] == 1 and names[1] not in got and names[2] not in got
+        assert build.counter(names[2]).value == 5 and names[2] in build.TALLIES
+    finally:
+        for n in names:
+            build.COUNTERS.pop(n, None)
+        build.TALLIES.discard(names[2])
+
+
 # ---------------------------------------------------------------------------
 # The graph-backed decode, on the CPU
 # ---------------------------------------------------------------------------

@@ -20,6 +20,7 @@ from repro.models import layers as jax_layers
 from repro.models import moe as jax_moe
 from repro.models import ssm as jax_ssm
 from repro_torch.configs import arch_from_reference
+from repro_torch.kernels import build
 from repro_torch.models import layers, moe, ssm
 
 
@@ -116,6 +117,77 @@ def test_sparse_is_deterministic_and_batch_invariant():
         cap = moe._capacity(m, 32)
         assert torch.equal(moe._dispatch(p, x[row : row + 1], m, cap)[2][0],
                            moe._dispatch(p, x, m, cap)[2][row])
+
+
+def _per_sequence_ffn(p, x, m):
+    """Every sequence routed on its own at ``_capacity(m, S)``, whatever
+    the batch: the sparse FFN before batches were pooled."""
+    b, s, d = x.shape
+    e, cap = m.n_experts, moe._capacity(m, s)
+    xs, info, _ = moe._dispatch(p, x, m, cap)
+    xe = xs.reshape(b, e, cap, d).transpose(0, 1).reshape(e, b * cap, d)
+    h = torch.nn.functional.silu(torch.bmm(xe, p["w_gate"])) * torch.bmm(xe, p["w_up"])
+    ys = torch.bmm(h, p["w_down"]).reshape(e, b, cap, d).transpose(0, 1).reshape(b, e * cap, d)
+    return moe._combine(ys, info, s, m.top_k)
+
+
+def _moe_counts():
+    names = ("moe_dispatch pooled", "moe_dispatch per_sequence", "moe_rows computed",
+             "moe_pairs routed")
+    return {n.split(" ", 1)[1]: build.counter(n).value for n in names}
+
+
+@pytest.mark.parametrize("b,s,cf", [(2, 1, 1.25), (32, 1, 1.25), (3, 16, 5.0), (1, 16, 5.0)])
+def test_dropless_batch_routes_as_one_group(b, s, cf):
+    """Where per-sequence capacity drops nothing (cap >= S), a batch of
+    several sequences is routed as one group of B * S tokens at capacity
+    round8(B * S): nothing drops, and the output is the reference's
+    per-sequence routing and the dense oracle at 1e-5.  One sequence keeps
+    its own route and its bits."""
+    jmoe, jp, m, p = _moe_setup(cf=cf)
+    x = _x((b, s, 16), 6)
+    xg, cap = moe._groups(_t(x), m)
+    pooled = b > 1
+    assert xg.shape == ((1, b * s, 16) if pooled else (b, s, 16))
+    assert cap == (-(-(b * s) // 8) * 8 if pooled else moe._capacity(m, s)) >= moe._capacity(m, 1)
+    assert moe._dispatch(p, xg, m, cap)[2].tolist() == [0] * xg.shape[0]
+    before = _moe_counts()
+    got = moe.moe_ffn_sparse(p, _t(x), m)
+    after = _moe_counts()
+    assert after["pooled"] - before["pooled"] == int(pooled)
+    assert after["per_sequence"] - before["per_sequence"] == int(not pooled)
+    want = jax_moe.moe_ffn_sparse(jp, jnp.asarray(x), jmoe)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), moe.moe_ffn_dense(p, _t(x), m).numpy(), rtol=0,
+                               atol=1e-5)
+    per_sequence = _per_sequence_ffn(p, _t(x), m)
+    if pooled:
+        np.testing.assert_allclose(got.numpy(), per_sequence.numpy(), rtol=0, atol=1e-5)
+    else:
+        assert torch.equal(got, per_sequence)
+
+
+def test_route_counters_after_eager_calls():
+    """Each call counts its route, its expert rows and its pairs: granite's
+    shape (40 experts, top-8) at 32 one-token sequences computes 1,280
+    rows for 256 pairs pooled (10,240 per sequence); a capacity that drops
+    pairs (factor 0.3 at S = 32) keeps the per-sequence route."""
+    _, _, m, p = _moe_setup(e=40, k=8, cf=1.25)
+    before = _moe_counts()
+    moe.moe_ffn_sparse(p, _t(_x((32, 1, 16), 7)), m)
+    after = _moe_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        "pooled": 1, "per_sequence": 0, "computed": 1280, "routed": 256}
+    _, _, m, p = _moe_setup(cf=0.3)
+    x = _t(_x((3, 32, 16), 8))
+    cap = moe._capacity(m, 32)
+    assert cap < 32 and moe._groups(x, m) == (x, cap)
+    before = _moe_counts()
+    got = moe.moe_ffn_sparse(p, x, m)
+    after = _moe_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        "pooled": 0, "per_sequence": 1, "computed": 4 * 3 * cap, "routed": 3 * 32 * 2}
+    assert torch.equal(got, _per_sequence_ffn(p, x, m))
 
 
 def test_moe_ffn_follows_impl_and_the_loss_waits():
