@@ -18,6 +18,11 @@ round from the seed and the round's index (its graphs read the keys as
 inputs, so nothing is captured again).  A traced run profiles one whole
 round.
 
+``fine_latency_p50_ms`` is the median, over every level-2 (fine) request
+the chains send in the window, of the time from the chains' submit to the
+reply, stamped on the harness's own clock around the balancer's client
+calls (:class:`ReplyClock`).
+
 Every stacked reply the pools give in the window is recorded as it leaves
 the pool's handler.  After the window a sample of them, whole batches drawn
 from the seed, is recomputed by the float64 reference
@@ -28,6 +33,7 @@ density (``device_densities``, the GP mean the fused graphs call) there.
 from __future__ import annotations
 
 import math
+import statistics
 import time
 from dataclasses import fields
 from typing import Any, Dict, List
@@ -76,6 +82,37 @@ class Recorder:
             return out
 
         return handler
+
+
+class ReplyClock:
+    """Stamps, while ``on``, the submit and the reply of every request of
+    ``tag`` that goes through ``lb``'s client calls (``submit_async``,
+    ``submit_many``), on the harness's clock; ``ms`` holds the latencies."""
+
+    def __init__(self, lb, tag: str) -> None:
+        self.tag = tag
+        self.on = False
+        self.ms: List[float] = []
+        one, many = lb.submit_async, lb.submit_many
+
+        def submit_async(theta, *a, **k):
+            t = time.monotonic()
+            req = one(theta, *a, **k)
+            self._watch(req, t)
+            return req
+
+        def submit_many(thetas, *a, **k):
+            t = time.monotonic()
+            reqs = many(thetas, *a, **k)
+            for req in reqs:
+                self._watch(req, t)
+            return reqs
+
+        lb.submit_async, lb.submit_many = submit_async, submit_many
+
+    def _watch(self, req, t: float) -> None:
+        if self.on and req.tag == self.tag:
+            req.add_done_callback(lambda _r: self.ms.append((time.monotonic() - t) * 1e3))
 
 
 def _snapshot(lb) -> Dict[str, Any]:
@@ -133,6 +170,7 @@ class Bench(BenchBase):
                 n_chains=w.n_chains, speculative=w.speculative_prefetch, as_runner=True,
                 **common, **w.runner_kwargs())
             self.last = None
+        self.fine_clock = ReplyClock(self.lb, "level2")
         self.forwards = {1: h["forward_coarse_batch"], 2: h["forward_fine_batch"]}
         self.rounds = 0
         self.chain_failures = 0
@@ -195,6 +233,7 @@ class Bench(BenchBase):
         before = _snapshot(self.lb)
         for r in self.recorders.values():
             r.on = True
+        self.fine_clock.on = True
         t0 = time.monotonic()
         deadline = t0 + float(self.ctx.seconds)
         n_fine = rounds = 0
@@ -222,6 +261,7 @@ class Bench(BenchBase):
                 paused += time.monotonic() - p0
                 deadline += paused
         t1 = time.monotonic()
+        self.fine_clock.on = False
         for r in self.recorders.values():
             r.on = False
         after = _snapshot(self.lb)
@@ -237,6 +277,7 @@ class Bench(BenchBase):
         self.facts = {
             "window_s": self.window_s,
             "rounds": rounds,
+            "fine_samples": n_fine,
             "trace_pause_s": paused,
             "idle_sum_s": after["idle_sum"] - before["idle_sum"],
             "idle_n": after["idle_n"] - before["idle_n"],
@@ -253,7 +294,10 @@ class Bench(BenchBase):
             self.final_logp_gp = self.densities[0](st.theta).double().cpu().numpy()
 
     def end_to_end(self) -> Dict[str, float]:
-        return {"fine_samples_per_s": self.n_fine / self.window_s}
+        out = {"fine_samples_per_s": self.n_fine / self.window_s}
+        if self.fine_clock.ms:
+            out["fine_latency_p50_ms"] = statistics.median(self.fine_clock.ms)
+        return out
 
     def release(self) -> None:
         import torch
@@ -313,6 +357,7 @@ class Bench(BenchBase):
 
     def extra(self) -> Dict[str, Any]:
         return {"rounds": self.facts.get("rounds"), "fine_samples": self.n_fine,
+                "fine_requests": len(self.fine_clock.ms),
                 "graphs_captured_in_window": self.facts.get("graphs_captured_in_window"),
                 "multi_row_batches": {lvl: sum(len(np.asarray(o)) > 1 for _, o in r.batches)
                                       for lvl, r in self.recorders.items()}}

@@ -4,8 +4,10 @@ A cell (an entry of ``workloads``) names a configuration and a traffic mix.
 The configuration's file is the one its ``configs`` entry gives; the mix is
 ``mixes/<traffic>.json``, whose ``driver`` key names
 ``drivers/<driver>.py``; a per-layer metric ``<name>`` is read by
-``metrics/<name>.py``.  Nothing here knows a cell, a mix or a metric by
-name, so a new one is new files and new entries.
+``metrics/<name>.py``; a configuration with a ``model_type`` (a served
+LM) is built, counted and judged by ``archs/<model_type>.py``.  Nothing
+here knows a cell, a mix, a metric or an architecture by name, so a new
+one is new files and new entries.
 """
 from __future__ import annotations
 
@@ -77,6 +79,8 @@ def resolve(name: str, bench: Optional[Dict[str, Any]] = None, root: Path = ROOT
         "driver": driver_path(cell.driver, root),
         **{f"metric:{m['name']}": metric_path(m["name"], root) for m in per_layer},
     }
+    if "model_type" in cell.config:
+        cell.files["arch"] = arch_path(cell.config["model_type"], root)
     return cell
 
 
@@ -86,6 +90,10 @@ def driver_path(driver: str, root: Path = ROOT) -> Path:
 
 def metric_path(metric: str, root: Path = ROOT) -> Path:
     return root / "portbench" / "metrics" / f"{metric}.py"
+
+
+def arch_path(model_type: str, root: Path = ROOT) -> Path:
+    return root / "portbench" / "archs" / f"{model_type}.py"
 
 
 def load_file(path: Path, prefix: str) -> ModuleType:
@@ -108,3 +116,13 @@ def load_driver(cell: Cell) -> ModuleType:
 
 def load_metric(name: str, root: Path = ROOT) -> ModuleType:
     return load_file(metric_path(name, root), "metrics")
+
+
+def load_arch(model_type: str, root: Path = ROOT) -> ModuleType:
+    """The architecture module of ``model_type``; an unknown one fails
+    here, naming the path looked for."""
+    path = arch_path(model_type, root)
+    if not path.is_file():
+        raise FileNotFoundError(f"no architecture module for model_type {model_type!r}: "
+                                f"{path} does not exist")
+    return load_file(path, "archs")

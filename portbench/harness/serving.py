@@ -2,8 +2,11 @@
 mix, the window in an open or a closed loop, and the check of the served
 tokens against the plain reference.
 
-Set-up makes the weights on the card from the seed
-(``portbench.harness.weights``), builds ``repro_torch``'s
+The configuration's ``model_type`` names its architecture module
+(``portbench/archs/<model_type>.py``), which gives the program's
+``ArchConfig``, the weights' leaves, their program names, the plain
+reference and the FLOP counts.  Set-up makes the weights on the card from
+the seed (``portbench.harness.weights``), builds ``repro_torch``'s
 ``ServingEngine`` in paged mode over them, and warms the shapes the
 traffic uses: one prompt of each length from 1 to the prefill chunk, so
 every chunk graph and the step graph are captured before the window.
@@ -15,6 +18,11 @@ with its request, so ``tokens_per_s`` counts exactly the tokens emitted
 inside the window; after the window no request is submitted and every one
 in flight is waited for (at most ``drain_s``), so the tails are over every
 request and the judged sample can hold the longest.
+
+At the window's edges the balancer's slot occupancy and every amount the
+program tallies (``repro_torch.kernels.build.TALLIES``) are read, and
+their differences go into ``facts`` (``slot_share``, ``tallies``), where a
+reader under ``portbench/metrics`` finds them.
 """
 from __future__ import annotations
 
@@ -26,28 +34,30 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
-from portbench.counts import lm as lm_counts
 from portbench.counts.peaks import BF16_FLOPS
 from portbench.harness.bench import BenchBase
+from portbench.harness.cells import load_arch
 from portbench.harness.report import Check
-from portbench.harness.weights import make_weights, program_tree
+from portbench.harness.weights import make_weights
 
 
 def arch_config(c: Dict[str, Any]):
     """The program's ``ArchConfig`` for the configuration file."""
-    from repro_torch.configs.base import ArchConfig, MoEConfig
+    return load_arch(c["model_type"]).arch_config(c)
 
-    d, h = int(c["hidden_size"]), int(c["num_attention_heads"])
-    return ArchConfig(
-        arch_id=c["name"], family="moe", n_layers=int(c["num_hidden_layers"]), d_model=d,
-        n_heads=h, n_kv_heads=int(c["num_key_value_heads"]), d_ff=int(c["intermediate_size"]),
-        vocab=int(c["vocab_size"]), head_dim=d // h, mlp="swiglu",
-        rope_theta=float(c["rope_theta"]), tie_embeddings=bool(c["tie_word_embeddings"]),
-        norm_eps=float(c["rms_norm_eps"]),
-        moe=MoEConfig(n_experts=int(c["num_local_experts"]), top_k=int(c["num_experts_per_tok"]),
-                      d_ff=int(c["intermediate_size"]), capacity_factor=float(c["capacity_factor"])),
-        param_dtype=c["torch_dtype"], compute_dtype=c["torch_dtype"],
-    )
+
+def tallies() -> Dict[str, int]:
+    """Every amount the program tallies, as it reads now."""
+    from repro_torch.kernels import build
+
+    counters = [build.COUNTERS.get(n) for n in list(build.TALLIES)]
+    return {c.name: c.value for c in counters if c is not None}
+
+
+def tally_deltas(before: Dict[str, int], after: Dict[str, int]) -> Dict[str, int]:
+    """What each tally added between two readings; one that did not exist
+    at the first counts from 0."""
+    return {n: v - before.get(n, 0) for n, v in after.items()}
 
 
 def lengths(spec: Dict[str, Any], n: int, rng: np.random.Generator) -> np.ndarray:
@@ -84,15 +94,16 @@ class ServeBench(BenchBase):
         self.cfg = ctx.config
         self.mix = ctx.mix
         self.name = self.cfg["name"]
-        self.arch = arch_config(self.cfg)
+        self.model = load_arch(self.cfg["model_type"], ctx.root)
+        self.arch = self.model.arch_config(self.cfg)
         eng = self.mix["engine"]
         self.chunk = int(eng["prefill_chunk"])
-        self.weights = make_weights(self.cfg, ctx.seed, ctx.device)
+        self.weights = make_weights(self.cfg, ctx.seed, ctx.device, self.model)
         self.engine = ServingEngine(
             {self.name: self.arch}, mode="paged", n_slots=int(eng["slots"]),
             cache_len=int(eng["cache_len"]), block_size=int(eng["block_size"]),
             prefill_chunk=self.chunk, seed=int(ctx.seed) & 0x7FFFFFFF, device=ctx.device,
-            params={self.name: program_tree(self.weights)},
+            params={self.name: self.model.program_tree(self.weights)},
         )
         self.pool = next(s for s in self.engine.lb.servers if s.name.startswith("paged:"))
         self.calls: Optional[list] = None
@@ -160,6 +171,7 @@ class ServeBench(BenchBase):
     # -- window -------------------------------------------------------------------
     def window(self) -> None:
         before = self._occupancy()
+        tallies_before = tallies()
         if self.timed:
             self.calls = []
         self.t0 = time.monotonic()
@@ -171,6 +183,7 @@ class ServeBench(BenchBase):
             self._closed_loop()
         self.window_s = self.t1 - self.t0
         self.occupancy = (before, self._occupancy())
+        self.tallies = tally_deltas(tallies_before, tallies())
         self._drain()
         self._facts()
 
@@ -242,10 +255,10 @@ class ServeBench(BenchBase):
             p = int(self.prompt_lens[r.idx])
             n_tok += sum(1 for t in times if t0 <= t < t1)
             if times and t0 <= times[0] < t1:
-                flops += lm_counts.prompt_flops(self.cfg, p)
+                flops += self.model.prompt_flops(self.cfg, p)
             for j, t in enumerate(times[1:], start=1):
                 if t0 <= t < t1:
-                    flops += lm_counts.decode_token_flops(self.cfg, p + j - 1)
+                    flops += self.model.decode_token_flops(self.cfg, p + j - 1)
         ttft = [r.result.token_times[0] - r.due for r in done]
         tpot = [(r.result.token_times[-1] - r.result.token_times[0]) / (len(r.result.tokens) - 1)
                 for r in done if len(r.result.tokens) > 1]
@@ -259,6 +272,7 @@ class ServeBench(BenchBase):
             "peak_flops": BF16_FLOPS,
             "slot_share": (a["slot_steps"] - b["slot_steps"]) / (steps * a["capacity"])
             if steps > 0 and a["capacity"] else None,
+            "tallies": self.tallies,
         }
         self.trace = None
         if self.timed:
@@ -325,12 +339,13 @@ class ServeBench(BenchBase):
         widest read up to 0.23, the fp8 control's least 0.27-0.40."""
         import torch
 
-        from portbench.reference.lm import Reference, control_gaps, served_gaps
+        from portbench.reference.lm import control_gaps, served_gaps
 
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        ref = Reference(self.weights, self.cfg, dtype=torch.float32)
-        ctl = Reference(self.weights, self.cfg, dtype=torch.float32, quant="fp8") if control else None
+        ref = self.model.Reference(self.weights, self.cfg, dtype=torch.float32)
+        ctl = self.model.Reference(self.weights, self.cfg, dtype=torch.float32,
+                                   quant="fp8") if control else None
         gaps = []
         n_tokens = 0
         for r in self._sample():

@@ -1,5 +1,5 @@
 """The yardstick's counts: the fused SWE step's bytes and the served
-model's FLOPs."""
+model's FLOPs (its architecture module's)."""
 from __future__ import annotations
 
 import json
@@ -7,7 +7,8 @@ import json
 import pytest
 
 from portbench.tests import tiny
-from portbench.counts import lm, swe
+from portbench.counts import swe
+from portbench.harness.cells import load_arch
 
 
 def test_fused_step_bound_at_288_by_8():
@@ -31,20 +32,22 @@ def _granite():
 
 def test_granite_active_parameters():
     c = _granite()
+    gm = load_arch(c["model_type"])
     d, f, v = 1536, 512, 49155
     attn = d * 24 * 64 + 2 * d * 8 * 64 + 24 * 64 * d
     per_layer = attn + d * 40 + 8 * 3 * d * f
-    assert lm.layer_params_per_token(c) == per_layer
-    assert lm.head_params(c) == d * v  # the head, tied to the embedding: still d x v a token
-    assert lm.active_params(c) == 32 * per_layer + d * v
-    assert lm.active_params(c) == pytest.approx(0.88e9, rel=0.01)
+    assert gm.layer_params_per_token(c) == per_layer
+    assert gm.head_params(c) == d * v  # the head, tied to the embedding: still d x v a token
+    assert gm.active_params(c) == 32 * per_layer + d * v
+    assert gm.active_params(c) == pytest.approx(0.88e9, rel=0.01)
 
 
 def test_granite_token_flops():
     c = _granite()
-    assert lm.decode_token_flops(c, 0) == 2 * lm.active_params(c) + 4 * 32 * 24 * 64
-    assert lm.attention_flops(c, 99) == 100 * lm.attention_flops(c, 0)
+    gm = load_arch(c["model_type"])
+    assert gm.decode_token_flops(c, 0) == 2 * gm.active_params(c) + 4 * 32 * 24 * 64
+    assert gm.attention_flops(c, 99) == 100 * gm.attention_flops(c, 0)
     p = 37
-    by_token = sum(2 * (lm.active_params(c) - lm.head_params(c)) + lm.attention_flops(c, i)
-                   for i in range(p)) + 2 * lm.head_params(c)
-    assert lm.prompt_flops(c, p) == by_token
+    by_token = sum(2 * (gm.active_params(c) - gm.head_params(c)) + gm.attention_flops(c, i)
+                   for i in range(p)) + 2 * gm.head_params(c)
+    assert gm.prompt_flops(c, p) == by_token

@@ -37,7 +37,7 @@ def test_cell_runs_and_reports(name):
     assert {"platform", "kind", "count", "memory_peak_bytes"} <= set(dev)
 
 
-@pytest.mark.parametrize("name", [CELLS[0], next(c for c in CELLS if c.startswith("granite"))])
+@pytest.mark.parametrize("name", [CELLS[0]] + [c for c in CELLS if c.startswith("granite")])
 def test_traced_run_reports_per_layer_metrics(name):
     out, _ = _run(name, trace=True)
     cell = cells.resolve(name)
@@ -45,8 +45,11 @@ def test_traced_run_reports_per_layer_metrics(name):
     # On the CPU the trace holds no device operation: only the metrics that
     # read the program's counters can be there.
     assert set(out["metrics"]) <= names
-    assert {m["name"] for m in cell.per_layer if m["source"] == "program_counter"} <= \
-        set(out["metrics"])
+    counted = [m for m in cell.per_layer if m["source"] == "program_counter"]
+    assert {m["name"] for m in counted} <= set(out["metrics"])
+    for m in counted:  # shares (slot occupancy, live MoE rows) are of a whole
+        if m["unit"] == "%":
+            assert 0 < out["metrics"][m["name"]]["value"] <= 100, m["name"]
     if cell.mix["driver"] != "mlda_rounds":
         # Serving reads its device spans from CUDA events: none on the CPU.
         assert "window_s" not in out["device"]

@@ -33,6 +33,7 @@ def test_harness_imports_no_jax():
         "for w in cells.load_benchmark()['workloads']:\n"
         "    c = cells.resolve(w['name']); cells.load_driver(c)\n"
         "    [cells.load_metric(m['name']) for m in c.per_layer]\n"
+        "    'arch' in c.files and cells.load_arch(c.config['model_type'])\n"
         "import repro_torch.core, repro_torch.swe, repro_torch.runtime.serve_loop\n"
         "from portbench.harness.report import forbidden_modules\n"
         "print(forbidden_modules())\n"

@@ -82,7 +82,7 @@ def test_lm_reference_matches_the_program(tied):
     w = make_weights(cfg, 11, "cpu")
     assert ("unembed" in w) is not tied
     tokens = torch.as_tensor(np.random.default_rng(5).integers(0, 256, size=40))
-    prog = lm.forward(program_tree(w), arch_config(cfg), {"tokens": tokens[None]})[0]
+    prog = lm.forward(program_tree(w, cfg), arch_config(cfg), {"tokens": tokens[None]})[0]
     ref = ref_lm.Reference(w, cfg).logits(tokens)
     assert torch.allclose(prog, ref, atol=1e-4, rtol=0)
     served = prog[:-1].argmax(-1)[20:]
