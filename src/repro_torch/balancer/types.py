@@ -537,6 +537,11 @@ class DecodePool(Server):
         """In-flight slot infos (used by the pool-death failure path)."""
         return [info for info in self._slots if info is not None]
 
+    def drop_state(self) -> None:
+        """Free the pooled state once the pool serves no more (the balancer
+        shut down); the next admission would allocate it anew."""
+        self._state = None
+
     def clear(self) -> List[DecodeSlot]:
         """Drop every in-flight slot (pool death): bookkeeping only."""
         infos = self.occupied_slots()

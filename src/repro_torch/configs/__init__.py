@@ -13,6 +13,7 @@ from .base import (
     arch_from_reference,
     shape_applicable,
 )
+from .granite_4_0_h_small import CONFIG as granite_4_0_h_small
 from .granite_moe_3b_a800m import CONFIG as granite_moe_3b_a800m
 from .llava_next_mistral_7b import CONFIG as llava_next_mistral_7b
 from .mamba2_1_3b import CONFIG as mamba2_1_3b
@@ -25,13 +26,15 @@ from .tohoku_mlda import CONFIGS, CPU, PAPER, MLDAWorkloadConfig
 from .whisper_large_v3 import CONFIG as whisper_large_v3
 from .zamba2_1_2b import CONFIG as zamba2_1_2b
 
-# Every architecture of the reference.
+# Every architecture of the reference, then the port's own.
 ARCHS: Dict[str, ArchConfig] = {
     c.arch_id: c
     for c in [qwen2_0_5b, smollm_360m, phi4_mini_3_8b, nemotron_4_340b,
               llava_next_mistral_7b, mixtral_8x22b, granite_moe_3b_a800m, zamba2_1_2b,
-              mamba2_1_3b, whisper_large_v3]
+              mamba2_1_3b, whisper_large_v3, granite_4_0_h_small]
 }
+# The architectures the reference (``repro.configs``) does not have.
+PORT_ONLY_ARCHS = ("granite-4.0-h-small",)
 
 
 def get_arch(arch_id: str) -> ArchConfig:
@@ -48,6 +51,7 @@ __all__ = [
     "MLDAWorkloadConfig",
     "MoEConfig",
     "PAPER",
+    "PORT_ONLY_ARCHS",
     "SHAPES",
     "SSMConfig",
     "ShapeConfig",

@@ -4,12 +4,14 @@ The port serves every family of the reference: the decoder-only dense,
 MoE, SSM (Mamba2), hybrid (Mamba2 with one shared attention block) and VLM
 (patch embeddings projected in front of the tokens) families, and the
 encoder-decoder (whisper) family, with the SwiGLU, squared-ReLU or GELU
-MLP.  :func:`shape_applicable` is the reference's skip rule for the
-(arch x shape) cells of the dry-run.
+MLP.  A hybrid may instead name each layer's mixer (``layer_types``,
+granite-4.0-h): a Mamba2 mixer or attention, each followed by the FFN.
+:func:`shape_applicable` is the reference's skip rule for the (arch x
+shape) cells of the dry-run.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, fields, replace
+from dataclasses import MISSING, dataclass, fields, replace
 from typing import Dict, Optional, Tuple
 
 # Attention implementations (``ArchConfig.attn_impl``): the hand-written
@@ -20,15 +22,41 @@ ATTN_IMPLS = ("kernel", "chunked", "xla")
 _REFERENCE_ATTN_IMPL = {"pallas": "kernel", "chunked": "chunked", "xla": "xla"}
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "encdec")
 MLPS = ("swiglu", "sqrelu", "gelu")
+# The mixers a layer of ``ArchConfig.layer_types`` may name.
+MIXERS = ("mamba", "attention")
 
 
-@dataclass(frozen=True)
+def _default(f):
+    return f.default_factory() if f.default is MISSING else f.default
+
+
+def _given_or_default(obj, f):
+    """``obj``'s value of field ``f``, or the field's default where ``obj``
+    has no such attribute."""
+    return getattr(obj, f.name) if hasattr(obj, f.name) else _default(f)
+
+
+def _repr_set_fields(obj, quiet: Tuple[str, ...]) -> str:
+    """The dataclass repr, leaving out the fields of ``quiet`` that hold
+    their default: the settings that only some architectures use."""
+    parts = [f"{f.name}={getattr(obj, f.name)!r}" for f in fields(obj)
+             if f.repr and not (f.name in quiet and getattr(obj, f.name) == _default(f))]
+    return f"{type(obj).__name__}({', '.join(parts)})"
+
+
+@dataclass(frozen=True, repr=False)
 class MoEConfig:
     n_experts: int
     top_k: int
     d_ff: int  # per-expert hidden size
     capacity_factor: float = 1.25
     impl: str = "sparse"  # "sparse" (capacity dispatch) | "dense" (all experts)
+    # Width of a shared SwiGLU expert that every token passes through beside
+    # its routed ones (granite-4.0-h); 0 for none.
+    shared_d_ff: int = 0
+
+    def __repr__(self) -> str:
+        return _repr_set_fields(self, ("shared_d_ff",))
 
 
 @dataclass(frozen=True)
@@ -46,7 +74,7 @@ class SSMConfig:
         return self.d_inner(d_model) // self.head_dim
 
 
-@dataclass(frozen=True)
+@dataclass(frozen=True, repr=False)
 class ArchConfig:
     """One architecture (``configs/<id>.py``)."""
 
@@ -82,6 +110,18 @@ class ArchConfig:
     # (torch.utils.checkpoint), as the reference's jax.checkpoint.
     remat: bool = True
     source: str = ""
+    # hybrid (granite-4.0-h): each layer's mixer, one of MIXERS, each followed
+    # by the FFN (the MoE where ``moe`` is set); None elsewhere.
+    layer_types: Optional[Tuple[str, ...]] = None
+    # Granite's multipliers: the embedding's output is scaled by
+    # ``embedding_multiplier``, attention scores by ``attention_multiplier``
+    # (None: 1/sqrt(head size)), each residual branch by
+    # ``residual_multiplier``, and the logits divided by ``logits_scaling``.
+    # At their defaults the model computes what it computes without them.
+    embedding_multiplier: float = 1.0
+    attention_multiplier: Optional[float] = None
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
 
     def __post_init__(self) -> None:
         if self.family not in FAMILIES:
@@ -90,12 +130,37 @@ class ArchConfig:
             raise ValueError(f"mlp '{self.mlp}' not in {MLPS}")
         if self.attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl '{self.attn_impl}' not in {ATTN_IMPLS}")
+        if self.layer_types is not None:
+            if self.family != "hybrid" or self.shared_attn_every is not None:
+                raise ValueError("layer_types is a setting of the hybrid without a shared block")
+            if len(self.layer_types) != self.n_layers or not set(self.layer_types) <= set(MIXERS):
+                raise ValueError(f"layer_types must name one of {MIXERS} for each of the "
+                                 f"{self.n_layers} layers")
+
+    def __repr__(self) -> str:
+        return _repr_set_fields(self, _LAYERED_FIELDS)
 
     @property
     def hd(self) -> int:
         """Attention head size; an attention-free model (mamba2, ``n_heads``
         0) has none and never asks."""
         return self.head_dim or (self.d_model // self.n_heads)
+
+    @property
+    def attn_scale(self) -> float:
+        """The factor of the attention scores."""
+        if self.attention_multiplier is not None:
+            return self.attention_multiplier
+        return self.hd**-0.5
+
+    def mixers(self) -> Tuple[str, ...]:
+        """Each layer's mixer: ``layer_types``, or what the family puts in
+        every layer (the SSM family's and zamba2's core blocks are Mamba2;
+        zamba2's shared block is not a layer)."""
+        if self.layer_types is not None:
+            return self.layer_types
+        kind = "mamba" if self.family in ("ssm", "hybrid") else "attention"
+        return (kind,) * self.n_layers
 
     @property
     def subquadratic(self) -> bool:
@@ -133,19 +198,31 @@ class ArchConfig:
             changes["d_vision"] = 32
         if self.shared_attn_every is not None:
             changes["shared_attn_every"] = 2
+        if self.layer_types is not None:
+            # Both mixers, attention between Mamba2 layers, in four layers.
+            changes["n_layers"] = 4
+            changes["layer_types"] = ("mamba", "mamba", "attention", "mamba")
+        if self.moe is not None and self.moe.shared_d_ff:
+            changes["moe"] = replace(changes["moe"], shared_d_ff=128)
         return replace(self, **changes)
+
+
+# The fields only the layered hybrid (granite-4.0-h) sets.
+_LAYERED_FIELDS = ("layer_types", "embedding_multiplier", "attention_multiplier",
+                   "residual_multiplier", "logits_scaling")
 
 
 def arch_from_reference(ref) -> ArchConfig:
     """The port's config for a reference ``ArchConfig`` (any object with its
-    attributes): same fields, the nested MoE and SSM configs converted, and
+    attributes): same fields (the port's own settings, which the reference
+    lacks, at their defaults), the nested MoE and SSM configs converted, and
     the reference's ``attn_impl`` names mapped onto the port's ("pallas" ->
     "kernel")."""
-    kw = {f.name: getattr(ref, f.name) for f in fields(ArchConfig)}
+    kw = {f.name: _given_or_default(ref, f) for f in fields(ArchConfig)}
     kw["attn_impl"] = _REFERENCE_ATTN_IMPL[ref.attn_impl]
     for name, cls in (("moe", MoEConfig), ("ssm", SSMConfig)):
         if kw[name] is not None:
-            kw[name] = cls(**{f.name: getattr(kw[name], f.name) for f in fields(cls)})
+            kw[name] = cls(**{f.name: _given_or_default(kw[name], f) for f in fields(cls)})
     return ArchConfig(**kw)
 
 

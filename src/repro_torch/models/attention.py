@@ -87,6 +87,7 @@ def attention_train(
     o = attn_op(
         q.contiguous(), k.contiguous(), v.contiguous(),
         causal=causal, window=cfg.sliding_window, impl=cfg.attn_impl,
+        scale=cfg.attention_multiplier,
     )  # (B, H, S, hd)
     # Back to the residual stream's layout before the output projection
     # (a no-op without a policy): the query rows that context parallelism
@@ -165,8 +166,10 @@ class PagedKVCache(NamedTuple):
 
 
 def init_paged_kv_cache(cfg: ArchConfig, n_block_rows: int, block_size: int, dtype,
-                        device) -> PagedKVCache:
-    shape = (cfg.n_layers, n_block_rows, block_size, cfg.n_kv_heads, cfg.hd)
+                        device, n_layers: Optional[int] = None) -> PagedKVCache:
+    """A pool for ``n_layers`` attention layers (default every layer)."""
+    n = cfg.n_layers if n_layers is None else n_layers
+    shape = (n, n_block_rows, block_size, cfg.n_kv_heads, cfg.hd)
     return PagedKVCache(
         k=torch.zeros(shape, dtype=dtype, device=device),
         v=torch.zeros(shape, dtype=dtype, device=device),
@@ -202,7 +205,8 @@ def _attend(params: Params, q: torch.Tensor, view_k: torch.Tensor, view_v: torch
     ``valid`` (B, C, W) -> (B, C, d).  Scores accumulate the input values
     in fp32 with an fp32 result and no fp32 copy of the keys
     (:func:`~repro_torch.models.layers.matmul_f32`, the reference's
-    ``preferred_element_type=float32``); masked scores are -1e30."""
+    ``preferred_element_type=float32``) and are scaled by
+    ``cfg.attn_scale``; masked scores are -1e30."""
     return local_heads(partial(_read, cfg=cfg), q, view_k, view_v, valid) @ params["wo"]
 
 
@@ -213,7 +217,7 @@ def _read(q, view_k, view_v, valid, *, cfg: ArchConfig) -> torch.Tensor:
     group = h // hkv
     qg = q.reshape(b * hkv, group * c, hd)
     kt = view_k.reshape(b * hkv, w, hd).transpose(1, 2)
-    scores = matmul_f32(qg, kt).reshape(b, hkv, group, c, w) * (hd**-0.5)
+    scores = matmul_f32(qg, kt).reshape(b, hkv, group, c, w) * cfg.attn_scale
     scores = torch.where(valid[:, None, None], scores, -1e30)
     p = torch.softmax(scores, dim=-1)
     o = torch.einsum("bkgqs,bksd->bkgqd", p.to(view_v.dtype), view_v)

@@ -11,8 +11,12 @@ pass, the hybrid's groups as a whole too, as the reference's
 blocks in one list too (the reference's ``blocks`` groups, then
 ``blocks_tail``) and applies the single parameter-tied ``shared`` attention
 block after layers ``every - 1``, ``2 every - 1``, ..., each invocation with
-a KV cache of its own.  An MoE block calls the MoE FFN where a dense block
-calls its MLP.  The VLM (llava) is the dense model with a ``projector``
+a KV cache of its own.  The layered hybrid (granite-4.0-h, ``layer_types``)
+has a mixer in each layer, Mamba2 or attention, each followed by the FFN,
+with Granite's multipliers on the embedding, the residual branches and the
+logits; its decode state holds KV for its attention layers and SSM state
+for its Mamba2 layers only.  An MoE block calls the MoE FFN where a dense
+block calls its MLP.  The VLM (llava) is the dense model with a ``projector``
 that maps precomputed patch embeddings (B, n_patches, d_vision) into the
 stream in front of the tokens (:func:`_embed_inputs`); it serves text
 only, as the reference does.
@@ -23,13 +27,15 @@ simply a batch of rows; the KV cache and the recurrent SSM state are
 written in place, so a CUDA graph captured over a step reads and writes
 them as they are at replay.  The paged functions keep one block pool for
 every slot and per-slot block tables, all on the device; for the SSM
-family a "paged" pool is the slot-stacked recurrent state with no blocks,
-and the hybrid's caches are refused there, as in the reference.  The
-encoder-decoder family is :mod:`repro_torch.models.encdec`.
+family a "paged" pool is the slot-stacked recurrent state with no blocks;
+the layered hybrid's pool is both, blocks for its attention layers beside
+slot state for its mixers, and zamba2's caches are refused there, as in
+the reference.  The encoder-decoder family is
+:mod:`repro_torch.models.encdec`.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple, Union
+from typing import Dict, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -84,7 +90,7 @@ def _init_attn_block(gen: torch.Generator, cfg: ArchConfig, dtype, device) -> Pa
         "attn": init_attention(gen, cfg, dtype, device),
         "ln2": torch.ones((cfg.d_model,), dtype=dtype, device=device),
     }
-    if cfg.family == "moe":
+    if cfg.moe is not None:
         p["moe"] = moe.init_moe(gen, cfg, dtype, device)
     else:
         p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp, dtype, device)
@@ -98,13 +104,32 @@ def _init_mamba_block(gen: torch.Generator, cfg: ArchConfig, dtype, device) -> P
     }
 
 
+def _init_layered_block(gen: torch.Generator, cfg: ArchConfig, kind: str, dtype,
+                        device) -> Params:
+    """A layer of the layered hybrid: its mixer (``mamba`` or ``attn``),
+    then the FFN, each behind a norm."""
+    if kind == "attention":
+        return _init_attn_block(gen, cfg, dtype, device)
+    p = _init_mamba_block(gen, cfg, dtype, device)
+    p["ln2"] = torch.ones((cfg.d_model,), dtype=dtype, device=device)
+    if cfg.moe is not None:
+        p["moe"] = moe.init_moe(gen, cfg, dtype, device)
+    else:
+        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp, dtype, device)
+    return p
+
+
 def init_params(gen: torch.Generator, cfg: ArchConfig, device="cuda") -> Params:
     """Random parameters from ``gen``: ``{"blocks": [per-layer dict, ...],
     "embed", "ln_f"[, "unembed"][, "shared"][, "projector"]}`` with the
     reference's leaf names; ``device="meta"`` gives the shapes only."""
     dtype = dtype_of(cfg.param_dtype)
-    block = _init_mamba_block if cfg.family in MAMBA_FAMILIES else _init_attn_block
-    params: Params = {"blocks": [block(gen, cfg, dtype, device) for _ in range(cfg.n_layers)]}
+    if cfg.layer_types is not None:
+        blocks = [_init_layered_block(gen, cfg, kind, dtype, device) for kind in cfg.layer_types]
+    else:
+        block = _init_mamba_block if cfg.family in MAMBA_FAMILIES else _init_attn_block
+        blocks = [block(gen, cfg, dtype, device) for _ in range(cfg.n_layers)]
+    params: Params = {"blocks": blocks}
     if cfg.shared_attn_every:
         # Zamba2's shared block: full-width attention and MLP, one set of
         # tensors used at every invocation.
@@ -134,6 +159,21 @@ def param_count(params: Params) -> int:
     return count(params)
 
 
+def _mixer_index(cfg: ArchConfig) -> List[int]:
+    """Each layer's index among the layers of its mixer kind: where its KV
+    (attention) or its SSM state (Mamba2) sits in the decode state."""
+    seen: Dict[str, int] = {}
+    out = []
+    for kind in cfg.mixers():
+        out.append(seen.get(kind, 0))
+        seen[kind] = out[-1] + 1
+    return out
+
+
+def _n_mixers(cfg: ArchConfig, kind: str) -> int:
+    return sum(k == kind for k in cfg.mixers())
+
+
 def _shared_invocation(cfg: ArchConfig, layer: int) -> Optional[int]:
     """Which invocation of the hybrid's shared block follows ``layer``, if
     any: after every ``shared_attn_every``-th block; the tail has none."""
@@ -147,9 +187,30 @@ def _shared_invocation(cfg: ArchConfig, layer: int) -> Optional[int]:
 # Forward (prefill)
 # ---------------------------------------------------------------------------
 def _ffn(p: Params, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    if cfg.family == "moe":
+    if cfg.moe is not None:
         return moe.moe_ffn(p["moe"], h, cfg.moe)
     return mlp(p["mlp"], h, cfg.mlp)
+
+
+def _residual(x: torch.Tensor, o: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """``x + residual_multiplier * o`` (the product left out at 1)."""
+    m = cfg.residual_multiplier
+    return x + (o if m == 1.0 else o * m)
+
+
+def _scale_embed(x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    m = cfg.embedding_multiplier
+    return x if m == 1.0 else x * m
+
+
+def _layered_block(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """A layer of the layered hybrid over the whole sequence:
+    ``h = x + m mixer(norm1(x))``, ``h + m ffn(norm2(h))``."""
+    p = gather_params(p)
+    h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+    o = mamba_block(p["mamba"], h, cfg) if "mamba" in p else attention_train(p["attn"], h, cfg)
+    x = _residual(x, o, cfg)
+    return _residual(x, _ffn(p, rmsnorm(x, p["ln2"], cfg.norm_eps), cfg), cfg)
 
 
 def _apply_attn_block(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
@@ -160,12 +221,17 @@ def _apply_attn_block(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tens
 
 def _head(params: Params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     """Final norm and (tied or separate) unembedding -> fp32 logits, with no
-    fp32 copy of the (un)embedding (:func:`matmul_f32`)."""
+    fp32 copy of the (un)embedding (:func:`matmul_f32`), divided by
+    ``logits_scaling``."""
     params = gather_params({k: params[k] for k in ("ln_f", "embed", "unembed") if k in params})
     x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
     if cfg.tie_embeddings:
-        return maybe_constrain_logits(unembed(x, params["embed"]))
-    return maybe_constrain_logits(matmul_f32(x, params["unembed"]))
+        logits = unembed(x, params["embed"])
+    else:
+        logits = matmul_f32(x, params["unembed"])
+    if cfg.logits_scaling != 1.0:
+        logits = logits / cfg.logits_scaling
+    return maybe_constrain_logits(logits)
 
 
 def _embed_inputs(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]):
@@ -179,10 +245,12 @@ def _embed_inputs(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor
     if "tokens" in batch:
         parts.append(lookup(params["embed"], batch["tokens"]))
     x = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
-    return x.to(dtype_of(cfg.compute_dtype))
+    return _scale_embed(x.to(dtype_of(cfg.compute_dtype)), cfg)
 
 
 def _block(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    if cfg.layer_types is not None:
+        return _layered_block(p, x, cfg)
     if cfg.family in MAMBA_FAMILIES:
         p = gather_params(p)
         return x + mamba_block(p["mamba"], rmsnorm(x, p["ln1"], cfg.norm_eps), cfg)
@@ -253,7 +321,9 @@ class DecodeState(NamedTuple):
     SSM family), each row's next position ``pos`` (B,), and for the SSM and
     hybrid families the recurrent state ``ssm_h`` (L, B, H, P, N) in fp32
     and the rolling conv input ``ssm_conv`` (L, B, K-1, conv_dim) in the
-    compute dtype (None otherwise)."""
+    compute dtype (None otherwise).  The layered hybrid's KV holds its
+    attention layers and its ``ssm_*`` its Mamba2 layers, each in layer
+    order (:func:`_mixer_index`)."""
 
     kv: Optional[KVCache]
     pos: torch.Tensor
@@ -261,29 +331,56 @@ class DecodeState(NamedTuple):
     ssm_conv: Optional[torch.Tensor] = None
 
 
+def _init_ssm_state(cfg: ArchConfig, batch: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Zero recurrent state and conv window of every Mamba2 layer."""
+    ssm = cfg.ssm
+    n = _n_mixers(cfg, "mamba")
+    h = ssm.n_heads(cfg.d_model)
+    ssm_h = torch.zeros((n, batch, h, ssm.head_dim, ssm.d_state), dtype=torch.float32,
+                        device=device)
+    conv_dim = ssm.d_inner(cfg.d_model) + 2 * ssm.d_state
+    ssm_conv = torch.zeros((n, batch, ssm.d_conv - 1, conv_dim),
+                           dtype=dtype_of(cfg.compute_dtype), device=device)
+    return ssm_h, ssm_conv
+
+
 def init_decode_state(cfg: ArchConfig, batch: int, seq_len: int, device="cuda") -> DecodeState:
     dtype = dtype_of(cfg.compute_dtype)
     pos = torch.zeros((batch,), dtype=torch.int64, device=device)
     kv = ssm_h = ssm_conv = None
     if cfg.family != "ssm":
-        n_entries = cfg.n_layers // cfg.shared_attn_every if cfg.shared_attn_every else None
+        if cfg.shared_attn_every:
+            n_entries = cfg.n_layers // cfg.shared_attn_every
+        elif cfg.layer_types is not None:
+            n_entries = _n_mixers(cfg, "attention")
+        else:
+            n_entries = None
         kv = init_kv_cache(cfg, batch, seq_len, dtype, device, n_entries)
     if cfg.family in MAMBA_FAMILIES:
-        ssm = cfg.ssm
-        h = ssm.n_heads(cfg.d_model)
-        ssm_h = torch.zeros((cfg.n_layers, batch, h, ssm.head_dim, ssm.d_state),
-                            dtype=torch.float32, device=device)
-        conv_dim = ssm.d_inner(cfg.d_model) + 2 * ssm.d_state
-        ssm_conv = torch.zeros((cfg.n_layers, batch, ssm.d_conv - 1, conv_dim), dtype=dtype,
-                               device=device)
+        ssm_h, ssm_conv = _init_ssm_state(cfg, batch, device)
     return DecodeState(kv=kv, pos=pos, ssm_h=ssm_h, ssm_conv=ssm_conv)
 
 
 def _attn_block_decode(p: Params, x, kv: KVCache, entry: int, pos_buf, pos, cfg: ArchConfig):
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     o, _, _, pos_buf = attention_decode(p["attn"], h, kv.k[entry], kv.v[entry], pos_buf, pos, cfg)
-    x = x + o
-    return x + _ffn(p, rmsnorm(x, p["ln2"], cfg.norm_eps), cfg), pos_buf
+    x = _residual(x, o, cfg)
+    return _residual(x, _ffn(p, rmsnorm(x, p["ln2"], cfg.norm_eps), cfg), cfg), pos_buf
+
+
+def _mamba_decode(p: Params, x, ssm_h: torch.Tensor, ssm_conv: torch.Tensor, cfg: ArchConfig,
+                  active: Optional[torch.Tensor]) -> torch.Tensor:
+    """One token a row through a Mamba2 mixer -> its output (B, 1, d); the
+    layer's state ``ssm_h`` (B, H, P, N) and ``ssm_conv`` are written in
+    place, except where ``active`` (B,) is False."""
+    h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+    o, new_h, new_conv = mamba_decode_step(p["mamba"], h, ssm_h, ssm_conv, cfg)
+    if active is not None:
+        new_h = torch.where(active[:, None, None, None], new_h, ssm_h)
+        new_conv = torch.where(active[:, None, None], new_conv, ssm_conv)
+    ssm_h.copy_(new_h)
+    ssm_conv.copy_(new_conv)
+    return o
 
 
 def _decode_trunk(params: Params, cfg: ArchConfig, state: DecodeState, tokens: torch.Tensor,
@@ -292,21 +389,22 @@ def _decode_trunk(params: Params, cfg: ArchConfig, state: DecodeState, tokens: t
     pos_buf).  Caches and recurrent state are written in place; where
     ``active`` (B,) is False a row's recurrent state keeps its old value
     (the recurrence has no scratch row to absorb a dummy feed)."""
-    x = lookup(params["embed"], tokens).to(dtype_of(cfg.compute_dtype))
+    x = _scale_embed(lookup(params["embed"], tokens).to(dtype_of(cfg.compute_dtype)), cfg)
     pos = state.pos
     kv = state.kv
     pos_buf = kv.pos_buf if kv is not None else None
+    index = _mixer_index(cfg)
     for layer, p in enumerate(params["blocks"]):
-        if cfg.family in MAMBA_FAMILIES:
-            h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-            o, new_h, new_conv = mamba_decode_step(p["mamba"], h, state.ssm_h[layer],
-                                                   state.ssm_conv[layer], cfg)
-            if active is not None:
-                new_h = torch.where(active[:, None, None, None], new_h, state.ssm_h[layer])
-                new_conv = torch.where(active[:, None, None], new_conv, state.ssm_conv[layer])
-            state.ssm_h[layer].copy_(new_h)
-            state.ssm_conv[layer].copy_(new_conv)
-            x = x + o
+        j = index[layer]
+        if cfg.layer_types is not None:
+            if "mamba" in p:
+                x = _residual(x, _mamba_decode(p, x, state.ssm_h[j], state.ssm_conv[j], cfg,
+                                               active), cfg)
+                x = _residual(x, _ffn(p, rmsnorm(x, p["ln2"], cfg.norm_eps), cfg), cfg)
+            else:
+                x, pos_buf = _attn_block_decode(p, x, kv, j, pos_buf, pos, cfg)
+        elif cfg.family in MAMBA_FAMILIES:
+            x = x + _mamba_decode(p, x, state.ssm_h[layer], state.ssm_conv[layer], cfg, active)
             entry = _shared_invocation(cfg, layer)
             if entry is not None:
                 x, pos_buf = _attn_block_decode(params["shared"], x, kv, entry, pos_buf, pos, cfg)
@@ -392,6 +490,8 @@ class PagedDecodeState(NamedTuple):
     (L, n_slots, H, P, N) and (L, n_slots, K-1, conv_dim) (the reference
     stacks (n_slots, L, 1, ...)).  An SSM sequence's state is O(1), so its
     pool holds no blocks: "paged" is the slot state plus chunked prefill.
+    The layered hybrid has both: ``kv`` for its attention layers and
+    ``ssm_*`` for its Mamba2 layers (:func:`_mixer_index`).
     """
 
     kv: Optional[PagedKVCache]
@@ -404,13 +504,17 @@ class PagedDecodeState(NamedTuple):
 def check_paged_support(cfg: ArchConfig, cache_len: int) -> None:
     """Raise if ``cfg`` cannot serve through the paged path.
 
-    The hybrid's and the encoder-decoder's caches are not
-    block-structured.  A slot's view is a
+    The dense, MoE, VLM and SSM families and the layered hybrid
+    (``layer_types``: KV blocks for its attention layers, slot state for
+    its mixers) serve there.  zamba2's shared attention block keeps one
+    cache an invocation and the encoder-decoder a cross-attention cache
+    beside its own: neither is block-structured, and both are refused with
+    the reference's message, which names their families.  A slot's view is a
     never-wrapping identity map of its positions, so the slab cache it
     stands in for must never wrap either: a sliding window shorter than
     ``cache_len`` makes the slab cache a ring whose layout (and summation
     order) differs."""
-    if cfg.family not in ("dense", "moe", "vlm", "ssm"):
+    if cfg.family not in ("dense", "moe", "vlm", "ssm") and cfg.layer_types is None:
         raise ValueError(
             f"paged decoding unsupported for family {cfg.family!r} "
             "(hybrid/encdec caches are not block-structured)"
@@ -437,11 +541,17 @@ def init_paged_state(
         rows = init_decode_state(cfg, n_slots, cache_len, device)
         return PagedDecodeState(kv=None, tables=None, pos=pos, ssm_h=rows.ssm_h,
                                 ssm_conv=rows.ssm_conv)
-    kv = init_paged_kv_cache(cfg, n_block_rows, block_size, dtype_of(cfg.compute_dtype), device)
+    kv = init_paged_kv_cache(cfg, n_block_rows, block_size, dtype_of(cfg.compute_dtype), device,
+                             _n_mixers(cfg, "attention"))
+    ssm_h = ssm_conv = None
+    if cfg.layer_types is not None:
+        ssm_h, ssm_conv = _init_ssm_state(cfg, n_slots, device)
     return PagedDecodeState(
         kv=kv,
         tables=torch.zeros((n_slots, max_blocks), dtype=torch.int64, device=device),
         pos=pos,
+        ssm_h=ssm_h,
+        ssm_conv=ssm_conv,
     )
 
 
@@ -476,9 +586,9 @@ def paged_decode_step(
     scratch row 0 for inactive slots) with one scatter a layer, then each
     slot attends over the gather of its table rows.  Everything is computed
     from the state's tensors, so a graph captured over this step reads the
-    tables and positions as they are at replay.  The block pool (for ssm,
-    the active slots' recurrent state) is updated in place; the returned
-    state carries the new positions."""
+    tables and positions as they are at replay.  The block pool (for ssm
+    and the layered hybrid's mixers, the active slots' recurrent state) is
+    updated in place; the returned state carries the new positions."""
     n = tokens.shape[0]
     pos = state.pos
     new_pos = pos + active.to(pos.dtype)
@@ -495,16 +605,22 @@ def paged_decode_step(
     last = torch.clamp(pos // bs, max=state.tables.shape[1] - 1)
     blk = torch.where(active, state.tables[slots, last], 0)
     off = pos % bs
-    x = params["embed"][tokens.reshape(n, 1)].to(dtype_of(cfg.compute_dtype))
+    x = _scale_embed(params["embed"][tokens.reshape(n, 1)].to(dtype_of(cfg.compute_dtype)), cfg)
+    index = _mixer_index(cfg)
     for layer, p in enumerate(params["blocks"]):
-        h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-        q, k_new, v_new = decode_qkv(p["attn"], h, pos, cfg)  # k_new (n, Hkv, 1, hd)
-        kv.k[layer][blk, off] = k_new[:, :, 0]
-        kv.v[layer][blk, off] = v_new[:, :, 0]
-        vk = _view(kv.k[layer], state.tables, cache_len)
-        vv = _view(kv.v[layer], state.tables, cache_len)
-        x = x + attend_view(p["attn"], q, vk, vv, pos, cfg)
-        x = x + _ffn(p, rmsnorm(x, p["ln2"], cfg.norm_eps), cfg)
+        j = index[layer]
+        if "mamba" in p:
+            o = _mamba_decode(p, x, state.ssm_h[j], state.ssm_conv[j], cfg, active)
+        else:
+            h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+            q, k_new, v_new = decode_qkv(p["attn"], h, pos, cfg)  # k_new (n, Hkv, 1, hd)
+            kv.k[j][blk, off] = k_new[:, :, 0]
+            kv.v[j][blk, off] = v_new[:, :, 0]
+            vk = _view(kv.k[j], state.tables, cache_len)
+            vv = _view(kv.v[j], state.tables, cache_len)
+            o = attend_view(p["attn"], q, vk, vv, pos, cfg)
+        x = _residual(x, o, cfg)
+        x = _residual(x, _ffn(p, rmsnorm(x, p["ln2"], cfg.norm_eps), cfg), cfg)
     ids, logits = _lm_head_token(params, cfg, x)
     return state._replace(pos=new_pos), ids, logits
 
@@ -517,22 +633,37 @@ def paged_prefill_chunk(
     tokens: torch.Tensor,  # (C,) a chunk of the prompt
     start_pos: torch.Tensor,  # 0-d int64 position of tokens[0]
     cache_len: int,
+    n_real: Optional[torch.Tensor] = None,  # 0-d int64: tokens[n_real:] are padding
 ):
     """Feed one slot a chunk of C positions -> (state, id (1,), logits
-    (1, 1, V)) of the chunk's last position.
+    (1, 1, V)) of the chunk's last real position.
 
     For KV families the chunk is one batched pass a layer: all C positions
     projected and RoPE'd at once, written into the slot's blocks with one
     scatter, and attended under :func:`attend_view_chunk`'s causal mask (an
     MoE layer routes the chunk as one sequence, so its capacity follows C).
-    The SSM family steps the slot's recurrent state through the C tokens
-    one by one (the recurrence is sequential).  The head runs on the last
-    position only.  ``slot`` and ``start_pos`` are tensors, so a graph
-    captured over this function serves every slot and offset."""
+    The layered hybrid's Mamba2 layers run the chunked scan over the whole
+    chunk from the slot's state and conv window (:func:`mamba_block`) and
+    write back the state at its end.  The SSM family steps the slot's
+    recurrent state through the C tokens one by one (the recurrence is
+    sequential).  The head runs on the last real position only.
+
+    With ``n_real``, positions from ``n_real`` on are padding (KV and
+    hybrid families): their keys and values go to the scratch row 0, they
+    take dt = 0 in the mixers, so no recurrent state moves, the conv window
+    is the one the real positions leave, and the slot advances by
+    ``n_real``.  No real position reads a padded one, and in the MoE a
+    padded pair ranks after every real pair of its expert, so the real
+    positions' outputs are those of the unpadded chunk.  ``slot``,
+    ``start_pos`` and ``n_real`` are tensors, so a graph captured over this
+    function serves every slot, offset and fill of its length."""
     c = tokens.shape[0]
     idx = slot.reshape(1)
-    pos = state.pos.scatter(0, idx, (start_pos + c).reshape(1))
+    fed = c if n_real is None else n_real
+    pos = state.pos.scatter(0, idx, (start_pos + fed).reshape(1))
     if cfg.family == "ssm":
+        if n_real is not None:
+            raise ValueError("the SSM family's chunk steps its tokens one by one: no padding")
         row = DecodeState(kv=None, pos=start_pos.reshape(1),
                           ssm_h=state.ssm_h.index_select(1, idx),
                           ssm_conv=state.ssm_conv.index_select(1, idx))
@@ -545,19 +676,37 @@ def paged_prefill_chunk(
     kv = state.kv
     bs = kv.k.shape[2]
     row = state.tables[idx]  # (1, max_blocks)
-    positions = start_pos + torch.arange(c, device=tokens.device)
-    blks = row[0, positions // bs]
+    steps = torch.arange(c, device=tokens.device)
+    positions = start_pos + steps
+    if n_real is None:
+        blks = row[0, positions // bs]
+    else:
+        # A padded position may lie past the table's end: any entry will
+        # do, its write goes to the scratch row.
+        last = torch.clamp(positions // bs, max=row.shape[1] - 1)
+        blks = torch.where(steps < n_real, row[0, last], 0)
     offs = positions % bs
-    x = params["embed"][tokens[None, :]].to(dtype_of(cfg.compute_dtype))  # (1, C, d)
+    x = _scale_embed(params["embed"][tokens[None, :]].to(dtype_of(cfg.compute_dtype)), cfg)
+    index = _mixer_index(cfg)
     for layer, p in enumerate(params["blocks"]):
+        j = index[layer]
         h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-        q, k_new, v_new = chunk_qkv(p["attn"], h, positions, cfg)  # k_new (1, Hkv, C, hd)
-        kv.k[layer][blks, offs] = k_new[0].transpose(0, 1)
-        kv.v[layer][blks, offs] = v_new[0].transpose(0, 1)
-        vk = _view(kv.k[layer], row, cache_len)
-        vv = _view(kv.v[layer], row, cache_len)
-        x = x + attend_view_chunk(p["attn"], q, vk, vv, positions, cfg)
-        x = x + _ffn(p, rmsnorm(x, p["ln2"], cfg.norm_eps), cfg)
+        if "mamba" in p:
+            carried = (state.ssm_h[j].index_select(0, idx), state.ssm_conv[j].index_select(0, idx))
+            o, (new_h, new_conv) = mamba_block(p["mamba"], h, cfg, carried, n_real)
+            state.ssm_h[j].index_copy_(0, idx, new_h)
+            state.ssm_conv[j].index_copy_(0, idx, new_conv)
+        else:
+            q, k_new, v_new = chunk_qkv(p["attn"], h, positions, cfg)  # k_new (1, Hkv, C, hd)
+            kv.k[j][blks, offs] = k_new[0].transpose(0, 1)
+            kv.v[j][blks, offs] = v_new[0].transpose(0, 1)
+            vk = _view(kv.k[j], row, cache_len)
+            vv = _view(kv.v[j], row, cache_len)
+            o = attend_view_chunk(p["attn"], q, vk, vv, positions, cfg)
+        x = _residual(x, o, cfg)
+        x = _residual(x, _ffn(p, rmsnorm(x, p["ln2"], cfg.norm_eps), cfg), cfg)
+    if n_real is not None:
+        x = x.index_select(1, (n_real - 1).reshape(1))
     ids, logits = _lm_head_token(params, cfg, x)
     return state._replace(pos=pos), ids, logits
 
@@ -565,7 +714,7 @@ def paged_prefill_chunk(
 def paged_reset_slot(state: PagedDecodeState, slot: int,
                      row: Union[np.ndarray, torch.Tensor]) -> PagedDecodeState:
     """Point ``slot`` at block-table ``row`` and rewind it to position 0 (in
-    place); an SSM slot's recurrent state is zeroed.  The blocks are not
+    place); an SSM or layered hybrid slot's recurrent state is zeroed.  The blocks are not
     cleared: the ``j <= pos`` rule masks stale entries until they are
     overwritten in order."""
     if state.tables is not None:

@@ -15,8 +15,9 @@ scatter-adds dropped pairs as zeros into slot 0, dropped pairs here go to a
 scratch row at ``E * cap`` that is sliced off, and the combine sums each
 token's k contributions in one fixed order with no atomics, so a call is
 deterministic and a CUDA graph of it equals the eager call bit for bit.
-Nothing here has a dynamic shape or reads a value on the host, so a decode
-step or chunk through it can be captured.  The training path adds the
+A configuration with ``shared_d_ff`` adds a shared SwiGLU expert that
+every token passes through.  Nothing here has a dynamic shape or reads a
+value on the host, so a decode step or chunk through it can be captured.  The training path adds the
 Switch-style load-balancing loss (:func:`aux_load_balance_loss`).
 """
 from __future__ import annotations
@@ -33,15 +34,22 @@ from .layers import Params, dense_init, normal_init
 
 def init_moe(gen: torch.Generator, cfg: ArchConfig, dtype, device) -> Params:
     """The router in fp32 whatever ``dtype`` (as the reference), the experts'
-    SwiGLU weights (E, d, f), (E, d, f), (E, f, d) in ``dtype``."""
+    SwiGLU weights (E, d, f), (E, d, f), (E, f, d) in ``dtype``, and where
+    ``shared_d_ff`` is set the shared expert's (d, fs), (d, fs), (fs, d)."""
     moe = cfg.moe
     e, d, f = moe.n_experts, cfg.d_model, moe.d_ff
-    return {
+    p = {
         "router": dense_init(gen, d, e, torch.float32, device),
         "w_gate": normal_init(gen, (e, d, f), d**-0.5, dtype, device),
         "w_up": normal_init(gen, (e, d, f), d**-0.5, dtype, device),
         "w_down": normal_init(gen, (e, f, d), f**-0.5, dtype, device),
     }
+    fs = moe.shared_d_ff
+    if fs:
+        p["shared_gate"] = dense_init(gen, d, fs, dtype, device)
+        p["shared_up"] = dense_init(gen, d, fs, dtype, device)
+        p["shared_down"] = dense_init(gen, fs, d, dtype, device)
+    return p
 
 
 def _router_topk(params: Params, x2: torch.Tensor, moe: MoEConfig):
@@ -169,9 +177,16 @@ def moe_ffn_dense(params: Params, x: torch.Tensor, moe: MoEConfig) -> torch.Tens
 
 
 def moe_ffn(params: Params, x: torch.Tensor, moe: MoEConfig) -> torch.Tensor:
+    """The routed experts' sum, plus the shared expert's output where the
+    configuration has one (granite-4.0-h: ``moe(x) + shared(x)``)."""
     if moe.impl == "dense":
-        return moe_ffn_dense(params, x, moe)
-    return moe_ffn_sparse(params, x, moe)
+        out = moe_ffn_dense(params, x, moe)
+    else:
+        out = moe_ffn_sparse(params, x, moe)
+    if moe.shared_d_ff:
+        out = out + (F.silu(x @ params["shared_gate"]) * (x @ params["shared_up"])
+                     ) @ params["shared_down"]
+    return out
 
 
 def aux_load_balance_loss(params: Params, x: torch.Tensor, moe: MoEConfig) -> torch.Tensor:

@@ -17,11 +17,15 @@ Decode carries the (H, P, N) state exactly, O(1) a token.  The depthwise
 causal conv of :func:`mamba_block` and the rolling conv of
 :func:`mamba_decode_step` are the same sum of K shifted products in the
 same order, so a prefill through the block and one through the decode
-steps see the same conv outputs.
+steps see the same conv outputs.  Given a sequence's SSM state and conv
+window, :func:`mamba_block` continues it over a whole chunk of positions
+in one pass and returns the state and window at the chunk's end (a paged
+prefill chunk); positions past ``n_real`` are padding that moves neither.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -41,30 +45,37 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # SSD core
 # ---------------------------------------------------------------------------
-def ssd_naive(x, dt, A, B, C, D):
+def ssd_naive(x, dt, A, B, C, D, state=None):
     """Oracle recurrence.  x: (L, H, P), dt: (L, H), A: (H,), B/C: (L, N),
-    D: (H,).  One group: B and C are shared across heads."""
+    D: (H,).  One group: B and C are shared across heads.  From ``state``
+    (H, P, N) where given, and then -> (y, final state)."""
     l, h, p = x.shape
-    state = x.new_zeros((h, p, B.shape[-1]))
+    h0 = state
+    state = x.new_zeros((h, p, B.shape[-1])) if h0 is None else h0
     ys = []
     for t in range(l):
         decay = torch.exp(dt[t] * A)  # (H,)
         upd = dt[t][:, None, None] * (x[t][:, :, None] * B[t][None, None, :])
         state = decay[:, None, None] * state + upd
         ys.append(torch.einsum("hpn,n->hp", state, C[t]))
-    return torch.stack(ys) + D[None, :, None] * x
+    y = torch.stack(ys) + D[None, :, None] * x
+    return y if h0 is None else (y, state)
 
 
-def ssd_chunked(x, dt, A, B, C, D, chunk: int):
+def ssd_chunked(x, dt, A, B, C, D, chunk: int, state=None):
     """Chunked SSD.  Shapes as :func:`ssd_naive`, with optional leading batch
-    dims on x, dt, B and C; L % chunk == 0 (the caller pads).  Returns
-    (..., L, H, P)."""
+    dims on x, dt, B and C (and ``state``); L % chunk == 0 (the caller
+    pads).  Returns (..., L, H, P); from ``state`` (..., H, P, N) where
+    given, and then (y, the state after position L - 1)."""
     if x.ndim == 3:
-        return _ssd_chunked(x[None], dt[None], A, B[None], C[None], D, chunk)[0]
-    return _ssd_chunked(x, dt, A, B, C, D, chunk)
+        h0 = None if state is None else state[None]
+        y, h = _ssd_chunked(x[None], dt[None], A, B[None], C[None], D, chunk, h0)
+        return y[0] if state is None else (y[0], h[0])
+    y, h = _ssd_chunked(x, dt, A, B, C, D, chunk, state)
+    return y if state is None else (y, h)
 
 
-def _ssd_chunked(x, dt, A, B, C, D, q: int):
+def _ssd_chunked(x, dt, A, B, C, D, q: int, h0=None):
     b, l, h, p = x.shape
     n = B.shape[-1]
     nc = l // q
@@ -97,9 +108,9 @@ def _ssd_chunked(x, dt, A, B, C, D, q: int):
     sb = (wx.reshape(b, nc, q, h * p).transpose(-1, -2) @ Bq).reshape(b, nc, h, p, n)
     chunk_decay = torch.exp(cum[:, :, -1, :])  # (b, nc, h)
 
-    # The state entering each chunk: a loop over the chunks.
+    # The state entering each chunk: a loop over the chunks, from h0.
     s_in = torch.empty_like(sb)
-    state = sb.new_zeros((b, h, p, n))
+    state = sb.new_zeros((b, h, p, n)) if h0 is None else h0
     for c in range(nc):
         s_in[:, c] = state
         state = chunk_decay[:, c, :, None, None] * state + sb[:, c]
@@ -107,7 +118,7 @@ def _ssd_chunked(x, dt, A, B, C, D, q: int):
     # Across chunks: y_inter[i] = exp(cum_i) (C_i · S_in), two steps.
     cs = Cq @ s_in.permute(0, 1, 4, 2, 3).reshape(b, nc, n, h * p)  # (b, nc, q, h p)
     y = y + cs.reshape(b, nc, q, h, p) * torch.exp(cum)[..., None]
-    return y.reshape(b, l, h, p) + D[:, None] * x
+    return y.reshape(b, l, h, p) + D[:, None] * x, state
 
 
 # ---------------------------------------------------------------------------
@@ -147,12 +158,14 @@ def _conv_sum(windows, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv1d then SiLU.  x: (B, L, C), w: (K, C).  A sum
-    of shifted slices, as the reference (not ``F.conv1d``, which may run in
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 window: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Depthwise causal conv1d then SiLU.  x: (B, L, C), w: (K, C); the
+    K - 1 inputs before x are ``window`` (B, K-1, C), or zeros.  A sum of
+    shifted slices, as the reference (not ``F.conv1d``, which may run in
     TF32)."""
     k, s = w.shape[0], x.shape[1]
-    xp = F.pad(x, (0, 0, k - 1, 0))
+    xp = F.pad(x, (0, 0, k - 1, 0)) if window is None else torch.cat([window, x], dim=1)
     return F.silu(_conv_sum([xp[:, i : i + s] for i in range(k)], w) + b)
 
 
@@ -160,27 +173,55 @@ def _split(zxbcdt: torch.Tensor, di: int, n: int):
     return zxbcdt[..., :di], zxbcdt[..., di : 2 * di + 2 * n], zxbcdt[..., 2 * di + 2 * n :]
 
 
-def mamba_block(params: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """x: (B, S, d) -> (B, S, d)."""
+def mamba_block(params: Params, x: torch.Tensor, cfg: ArchConfig,
+                state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                n_real: Optional[torch.Tensor] = None):
+    """x: (B, S, d) -> (B, S, d).
+
+    With ``state`` = (SSM state (B, H, P, N) fp32, conv window (B, K-1,
+    conv_dim)) the block continues each sequence from them and returns
+    (y, (state, window)) after its last position.  ``n_real`` (0-d) marks
+    positions from ``n_real`` on as padding: they take dt = 0, so the SSM
+    state passes them unchanged, and the window returned holds the last
+    K - 1 inputs before ``n_real``.  The scan's chunks are ``ssm.chunk``
+    positions, or S where S is shorter (no padding within)."""
     ssm = cfg.ssm
     b, s, d = x.shape
     di, nh, n = ssm.d_inner(d), ssm.n_heads(d), ssm.d_state
 
-    z, xbc, dt_raw = _split(x @ params["in_proj"], di, n)
-    xbc = _causal_conv(xbc, params["conv_w"], params["conv_b"])
+    z, xbc_in, dt_raw = _split(x @ params["in_proj"], di, n)
+    window = None if state is None else state[1]
+    xbc = _causal_conv(xbc_in, params["conv_w"], params["conv_b"], window)
     xs, B, C = xbc[..., :di], xbc[..., di : di + n], xbc[..., di + n :]
     dt = softplus(dt_raw.float() + params["dt_bias"])  # (B, S, H)
+    if n_real is not None:
+        dt = dt * (torch.arange(s, device=x.device) < n_real)[None, :, None]
     A = -torch.exp(params["A_log"])  # (H,)
 
-    pad = (-s) % ssm.chunk
+    q = min(ssm.chunk, s)
+    pad = (-s) % q
     if pad:
         xs, dt, B, C = (F.pad(t, (0, 0, 0, pad)) for t in (xs, dt, B, C))
     xh = xs.reshape(b, s + pad, nh, ssm.head_dim)
-    y = rowwise(ssd_chunked, xh.float(), dt, A, B.float(), C.float(), params["D"], ssm.chunk,
-                batched=(True, True, False, True, True, False, False))
+    if state is None:
+        y = rowwise(ssd_chunked, xh.float(), dt, A, B.float(), C.float(), params["D"], q,
+                    batched=(True, True, False, True, True, False, False))
+    else:
+        y, h = ssd_chunked(xh.float(), dt, A, B.float(), C.float(), params["D"], q, state[0])
     y = y[:, :s].reshape(b, s, di).to(x.dtype)
     y = rmsnorm(y * F.silu(z), params["norm_w"], cfg.norm_eps)
-    return y @ params["out_proj"]
+    out = y @ params["out_proj"]
+    if state is None:
+        return out
+    # The window after the last real position: inputs n_real - K + 1 ..
+    # n_real - 1, which sit at n_real .. n_real + K - 2 of [window, inputs].
+    full = torch.cat([window, xbc_in], dim=1)
+    k1 = window.shape[1]
+    if n_real is None:
+        new_window = full[:, s:]
+    else:
+        new_window = full.index_select(1, n_real + torch.arange(k1, device=x.device))
+    return out, (h, new_window)
 
 
 def mamba_decode_step(

@@ -16,8 +16,9 @@ Every server decodes through CUDA graphs captured once over static state
 (the counterparts of the reference's jitted steps), so a token costs one
 replay instead of ~2,700 eager launches: a :class:`DecodeGraph` (the decode
 step and its argmax; a prompt replays the B = 1 graph once a position), a
-:class:`PagedGraphs` (the paged step, and one chunked-prefill graph per
-chunk length), and the speculative verify graphs (k + 1 decode steps each).
+:class:`PagedGraphs` (the paged step, and a chunked-prefill graph for each
+padded chunk length), and the speculative verify graphs (k + 1 decode steps
+each).
 
 The sharded per-cell entry points (:func:`shard_prefill_step`,
 :func:`shard_decode_step`) run the model's prefill and decode step over
@@ -49,6 +50,7 @@ from repro_torch.balancer import (
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.device import resolve_device
 from repro_torch.graphs import StaticGraph
+from repro_torch.kernels import build
 from repro_torch.models import (
     ModelBundle,
     abstract_decode_state,
@@ -237,33 +239,46 @@ class PagedGraphs:
     ``(n_slots,)``) replays :func:`~repro_torch.models.lm.paged_decode_step`
     and returns ``(ids (n_slots,), logits (n_slots, 1, V))``;
     ``chunk(slot, tokens, start_pos)`` replays the graph of
-    :func:`~repro_torch.models.lm.paged_prefill_chunk` for ``len(tokens)``
-    (captured at its first use; one per chunk length) and returns
-    ``(id (1,), logits (1, 1, V))``.  Both write the new positions into
-    ``state.pos``.  A slot is leased with
+    :func:`~repro_torch.models.lm.paged_prefill_chunk` and returns
+    ``(id (1,), logits (1, 1, V))`` of the chunk's last token.  Both write
+    the new positions into ``state.pos``.  A slot is leased with
     :func:`~repro_torch.models.lm.paged_reset_slot` on ``state``, which
     writes its table row and position in place: no graph holds a slot's
     blocks as a host value.
+
+    Chunk graphs are captured at their first use.  Given ``prefill_chunk``
+    (the pool's longest chunk), a KV or layered hybrid model pads a chunk
+    of n tokens to the next power of two from 16, at most
+    ``prefill_chunk``, so a pool captures at most log2(prefill_chunk / 16)
+    + 2 chunk graphs (5 at 256, 1 at 16); otherwise, and always for the
+    SSM family, whose chunk steps a token at a time, one graph a chunk
+    length.  Each call adds its real tokens to the tally ``prefill
+    tokens`` and its padding to ``prefill pad tokens``.
     """
 
     def __init__(self, bundle: ModelBundle, params, *, n_slots: int, n_blocks: int,
-                 block_size: int, cache_len: int, name: str) -> None:
+                 block_size: int, cache_len: int, name: str,
+                 prefill_chunk: Optional[int] = None) -> None:
         cfg = bundle.cfg
         self.device = _device_of(params)
         self.name = name
+        self.prefill_chunk = None if cfg.family == "ssm" else prefill_chunk
         max_blocks = -(-cache_len // block_size)
-        self.state = init_paged_state(cfg, n_slots, n_blocks + 1, block_size, max_blocks,
-                                      cache_len, self.device)
+        # The graphs' functions hold the state, not this object: no reference
+        # cycle, so dropping the object frees the graphs and the state.
+        state = self.state = init_paged_state(cfg, n_slots, n_blocks + 1, block_size,
+                                              max_blocks, cache_len, self.device)
 
         def step(tokens: torch.Tensor, active: torch.Tensor):
-            new, ids, logits = paged_decode_step(params, cfg, self.state, tokens, active, cache_len)
-            self.state.pos.copy_(new.pos)
+            new, ids, logits = paged_decode_step(params, cfg, state, tokens, active, cache_len)
+            state.pos.copy_(new.pos)
             return ids, logits
 
-        def chunk(slot: torch.Tensor, tokens: torch.Tensor, start_pos: torch.Tensor):
-            new, ids, logits = paged_prefill_chunk(params, cfg, self.state, slot, tokens,
-                                                   start_pos, cache_len)
-            self.state.pos.copy_(new.pos)
+        def chunk(slot: torch.Tensor, tokens: torch.Tensor, start_pos: torch.Tensor,
+                  n_real: Optional[torch.Tensor] = None):
+            new, ids, logits = paged_prefill_chunk(params, cfg, state, slot, tokens,
+                                                   start_pos, cache_len, n_real)
+            state.pos.copy_(new.pos)
             return ids, logits
 
         self._chunk_fn = chunk
@@ -275,13 +290,26 @@ class PagedGraphs:
         ], name=f"{name} step")
         self.chunks: Dict[int, StaticGraph] = {}
 
+    def padded_length(self, n: int) -> int:
+        """The length a chunk of ``n`` tokens runs at."""
+        if self.prefill_chunk is None:
+            return n
+        return min(self.prefill_chunk, max(16, 1 << (n - 1).bit_length()))
+
     def chunk(self, slot: int, tokens, start_pos: int):
+        tokens = np.asarray(tokens, dtype=np.int64).reshape(-1)
+        n = len(tokens)
+        size = self.padded_length(n)
         inputs = [
             torch.tensor(int(slot), dtype=torch.int64),
-            torch.as_tensor(np.asarray(tokens, dtype=np.int64).reshape(-1)),
+            torch.as_tensor(np.pad(tokens, (0, size - n))),
             torch.tensor(int(start_pos), dtype=torch.int64),
         ]
-        graph = self.chunks.get(len(inputs[1]))
+        if self.prefill_chunk is not None:
+            inputs.append(torch.tensor(n, dtype=torch.int64))
+        build.tally("prefill tokens").add(n)
+        build.tally("prefill pad tokens").add(size - n)
+        graph = self.chunks.get(size)
         if graph is None:
             # Captured on this call's own inputs: the warm-up writes the
             # chunk's keys and values, and the replay below writes the same
@@ -290,9 +318,9 @@ class PagedGraphs:
             st = self.state
             saved = None if st.ssm_h is None else (st.ssm_h[:, slot].clone(),
                                                    st.ssm_conv[:, slot].clone())
-            graph = self.chunks[len(inputs[1])] = StaticGraph(
+            graph = self.chunks[size] = StaticGraph(
                 self._chunk_fn, [x.to(self.device) for x in inputs],
-                name=f"{self.name} chunk C={len(inputs[1])}",
+                name=f"{self.name} chunk C={size}",
             )
             if saved is not None:
                 st.ssm_h[:, slot] = saved[0]
@@ -319,11 +347,12 @@ def make_paged_decode_pool(
     carry raw ``(prompt, n_new, eos)`` thetas and are prefilled *through
     the pool*, ``prefill_chunk`` positions per token boundary.  ``n_blocks``
     is the usable block count; None provisions ``n_slots`` worst-case
-    sequences.  The pool's state is the static state of a
-    :class:`PagedGraphs`, made when the pool first allocates its state: a
-    step is one copy of tokens and mask in, one replay and one copy of the
-    ``(n_slots,)`` ids out.  An SSM pool holds 0 blocks: its state is the
-    slots' recurrent state, and only chunked prefill remains.
+    sequences.  The pool's state is a :class:`PagedGraphs`, made when the
+    pool first allocates its state, and only the pool holds it: a step is
+    one copy of tokens and mask in, one replay and one copy of the
+    ``(n_slots,)`` ids out; a prompt's last, shorter chunk is padded.  An
+    SSM pool holds 0 blocks: its state is the slots' recurrent state, and
+    only chunked prefill remains.
     """
     check_paged_support(bundle.cfg, cache_len)
     max_blocks = -(-cache_len // block_size)
@@ -331,32 +360,24 @@ def make_paged_decode_pool(
         n_blocks = 0
     elif n_blocks is None:
         n_blocks = n_slots * max_blocks
-    graphs: Optional[PagedGraphs] = None
 
-    def init_state():
-        nonlocal graphs
-        graphs = PagedGraphs(bundle, params, n_slots=n_slots, n_blocks=n_blocks,
-                             block_size=block_size, cache_len=cache_len, name=name)
-        return graphs.state
+    def init_state() -> PagedGraphs:
+        return PagedGraphs(bundle, params, n_slots=n_slots, n_blocks=n_blocks,
+                           block_size=block_size, cache_len=cache_len, name=name,
+                           prefill_chunk=prefill_chunk)
 
-    def own(state) -> None:
-        if state is not graphs.state:
-            raise ValueError("a paged pool steps only the state its graphs were captured over")
-
-    def step_fn(state, tokens, active):
-        own(state)
+    def step_fn(graphs: PagedGraphs, tokens, active):
         ids, _ = graphs.step(torch.as_tensor(np.asarray(tokens, dtype=np.int64)),
                              torch.as_tensor(np.asarray(active, dtype=bool)))
-        return state, ids.cpu().numpy()
+        return graphs, ids.cpu().numpy()
 
-    def chunk_fn(state, slot, chunk, start_pos):
-        own(state)
+    def chunk_fn(graphs: PagedGraphs, slot, chunk, start_pos):
         ids, _ = graphs.chunk(slot, chunk, start_pos)
-        return state, int(ids[0])
+        return graphs, int(ids[0])
 
-    def reset_fn(state, slot, row):
-        own(state)
-        return paged_reset_slot(state, slot, row)
+    def reset_fn(graphs: PagedGraphs, slot, row):
+        paged_reset_slot(graphs.state, slot, row)
+        return graphs
 
     return PagedDecodePool(
         step_fn,
@@ -713,7 +734,14 @@ class ServingEngine:
         return self.lb.stats_table()
 
     def shutdown(self) -> None:
+        """Stop the balancer and free the decode pools' device state now: the
+        balancer sits in reference cycles, so without this the state would
+        stay on the card until the next cyclic collection, under the feet
+        of whatever uses the card next."""
         self.lb.shutdown()
+        for server in self.lb.servers:
+            if isinstance(server, DecodePool):
+                server.drop_state()
 
     def __enter__(self) -> "ServingEngine":
         return self

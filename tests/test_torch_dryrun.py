@@ -17,7 +17,7 @@ import sys
 
 import pytest
 
-from repro_torch.configs import ARCHS, SHAPES, shape_applicable
+from repro_torch.configs import ARCHS, PORT_ONLY_ARCHS, SHAPES, shape_applicable
 from repro_torch.launch import dryrun
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
@@ -95,8 +95,12 @@ def test_multidevice_trace(traces, arch_id):
 
 
 def test_model_flops_and_skip_rule_match_reference():
+    """Every id both packages have, looked up in the reference's table; the
+    port's own architectures are the only ids it lacks."""
     ref = _run(REFERENCE_SCRIPT)[0]
-    for a in sorted(ARCHS):
+    theirs = {key.split("|")[0] for key in ref}
+    assert set(ARCHS) - theirs == set(PORT_ONLY_ARCHS) and theirs <= set(ARCHS)
+    for a in sorted(theirs):
         for s in SHAPES:
             flops, applicable = ref[f"{a}|{s}"]
             assert dryrun.model_flops(a, s) == flops, (a, s)
